@@ -1,0 +1,95 @@
+"""The port's boundaries: no JAX, no pint_tpu, CUDA unless told otherwise.
+
+- ``import pint_tpu_torch`` (every module) leaves ``jax`` and
+  ``pint_tpu`` out of ``sys.modules`` (a fresh subprocess), and an AST
+  scan finds no import of either in the package or in chip_smoke.py;
+- entry points default to CUDA and raise without it, unless given
+  ``device="cpu"``;
+- chip_smoke.py exits non-zero and prints no result without a card, and
+  in a directory that holds nothing else of the repo.
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PKG = REPO / "pint_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "pint_tpu")
+
+
+def _modules():
+    for p in sorted(PKG.rglob("*.py")):
+        rel = p.relative_to(REPO).with_suffix("")
+        yield ".".join(rel.parts).removesuffix(".__init__")
+
+
+def test_import_leaves_jax_and_pint_tpu_out():
+    mods = list(_modules())
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        f"             if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(len(bad), bad[:5])\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_forbidden_import_in_source(path):
+    tree = ast.parse((REPO / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}: {n}"
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    from pint_tpu_torch import resolve_device
+    from pint_tpu_torch.convert import load_case
+    from pint_tpu_torch.fitter import GLSFitter
+    from pint_tpu_torch.residuals import Residuals
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, model, toas, tzr = load_case()
+    for make in (lambda: GLSFitter(toas, model, tzr),
+                 lambda: Residuals(toas, model, tzr),
+                 lambda: model.prepare(toas, tzr),
+                 lambda: GLSFitter(toas, model, tzr, device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert resolve_device("cpu").type == "cpu"
+    assert model.prepare(toas, tzr, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_without_card(tmp_path):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    runs = [(REPO, REPO / "chip_smoke.py")]
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    runs.append((tmp_path, alone))
+    for cwd, script in runs:
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0
+        assert '"ok": true' not in out.stdout
