@@ -10,30 +10,49 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (one nvcc per source, all started together), with its time;
+   (K1-K4, one nvcc per source, all started together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
    ``n`` and the bits of ``frac`` identical;
-4. kernel K2 (fixed-order segment sums) against its plain version on
-   the CPU at N = 10^4, K_e = 400, M in {1, 10, 61}: bit identity, and
-   bit identity from run to run on the card;
-5. the 10k-TOA, 400-epoch GLS fit of the B1855-like DD pulsar with
+4. the 10k-TOA, 400-epoch GLS fit of the B1855-like DD pulsar with
    ECORR and red noise (``pint_tpu_torch/data/b1855_epochs_10k.npz``)
    through ``GLSFitter(..., device="cuda").fit_toas(maxiter=3)``, held
    to the JAX CPU answer the fixture carries; launch counts of K1 and
    K2 during the fit (both > 0); cold and warm wall time; a profiler
    breakdown of a warm fit;
-6. the ``kernels`` JSON line: per kernel its launches during the fit,
-   error against the plain version, time, plain-version time, bound,
-   and the library call's time where one PyTorch call computes the same
-   function.
+5. kernel K2 (fixed-order segment sums) against its plain version on
+   the CPU at N = 10^4, K_e = 400, M in {1, 10, 61}: bit identity, and
+   bit identity from run to run on the card;
+6. K1 and K2 timed at the fit's shapes, and the fit's torch-route rows
+   (Kepler solve, capacity Cholesky, GLS solve, delay/phase fold): calls
+   per warm fit, device time per call, kernels per call, bound;
+7. the GW path on the 68-pulsar, 500-TOA array
+   (``pint_tpu_torch/data/pta68_500.npz``): ``OptimalStatistic(pairs,
+   nmodes=14)``, ``compute()``, ``noise_marginalized`` over 32 draws,
+   ``common_process().lnlike(-13.7, 13/3)`` and the 16 x 16
+   ``lnlike_grid``, each held to the JAX answer the case carries;
+   launch counts of K1, K3 and K4 during the path (all > 0); cold and
+   warm wall time, grid points/s, peak device memory and the device
+   busy share of one warm grid;
+8. kernel K3 (ragged per-pulsar weighted gram) against its plain
+   version on the card, at the case's shapes and at 68 pulsars x 10^4
+   rows x width 92: within 1e-13 of each entry's sum of |terms|, and
+   bit-identical from run to run; its time beside the padded
+   ``torch.einsum`` and the bound;
+9. kernel K4 (OS pair stage) against its plain version at the OS's
+   shapes, in the same way; the library yardstick is the two matmuls
+   Z diag(phihat) Z^T and V V^T;
+10. the ``kernels`` JSON line: per kernel its launches on its main path
+    (the fit for K1 and K2, the GW path for K3 and K4), error against
+    the plain version, time, plain-version time, bound, and the library
+    call's time where one PyTorch call computes the same function.
 
 Kernel times are device times (the profiler's kernel durations, summed
 per call and averaged over repeated calls after a warm-up) at the
-shapes the fit gives each kernel; the per-call time with the host's
-enqueue (CUDA events around a loop) is printed beside them.  Inputs
-stay in L2 between calls, as they do inside the fit.  Long outputs go
-to chiprun_out/.
+shapes the main path gives each kernel; the per-call time with the
+host's enqueue (CUDA events around a loop) is printed beside them.
+Inputs stay in L2 between calls where they fit, as they do inside the
+path.  Long outputs go to chiprun_out/.
 """
 
 from __future__ import annotations
@@ -48,10 +67,12 @@ from functools import partial
 
 import numpy as np
 
-#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s and
-#: FP64 (non-tensor) FLOP/s
+#: H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, FP64
+#: FLOP/s outside the tensor cores (elementwise work) and on them
+#: (GEMM-shaped work: grams, dot products over pairs, factorizations)
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOPS = 34e12
+FP64_TC_FLOPS = 67e12
 
 OUT_DIR = "chiprun_out"
 
@@ -78,9 +99,10 @@ def cuda_ms(fn, reps=200, warmup=10):
 
 
 def device_ms(fn, reps=50, warmup=5):
-    """Mean device time of ``fn`` [ms]: the summed durations of the
-    kernels it launches, from the profiler (CUPTI), without the host's
-    enqueue gaps.  None when the profiler records no kernel."""
+    """(mean device time of ``fn`` [ms], kernels per call): the summed
+    durations of the kernels it launches, from the profiler (CUPTI),
+    without the host's enqueue gaps.  (None, 0) when the profiler
+    records no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -93,9 +115,11 @@ def device_ms(fn, reps=50, warmup=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in ev)
+    n = sum(e.count for e in ev)
+    return (us / reps / 1e3 if us > 0 else None), n / reps
 
 
 def kernel_ms(fn):
@@ -104,16 +128,17 @@ def kernel_ms(fn):
     kernel in two tries (a profiler session now and then records no
     device activity)."""
     for _ in range(2):
-        ms = device_ms(fn)
+        ms, _ = device_ms(fn)
         if ms is not None:
             return ms, "profiler"
     return cuda_ms(fn), "events"
 
 
-def bound_ms(n_bytes, n_flops):
-    """(least time [ms], what bounds it) at the published peaks."""
+def bound_ms(n_bytes, n_flops, flops_per_s=FP64_FLOPS):
+    """(least time [ms], what bounds it) at the published peaks;
+    ``flops_per_s`` is FP64_TC_FLOPS for GEMM-shaped work."""
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_f = n_flops / FP64_FLOPS * 1e3
+    t_f = n_flops / flops_per_s * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
@@ -132,10 +157,11 @@ def phase_card():
 def phase_build():
     from pint_tpu_torch import _cuda
     from pint_tpu_torch.fixedpoint import K1
-    from pint_tpu_torch.linalg import K2
+    from pint_tpu_torch.gw.os import K4
+    from pint_tpu_torch.linalg import K2, K3
 
     t0 = time.time()
-    libs = _cuda.build([K1.source, K2.source])
+    libs = _cuda.build([k.source for k in (K1, K2, K3, K4)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -295,15 +321,14 @@ def phase_fit(arrays, model, toas, tzr):
     log(f"fit: wall time cold {cold_s:.3f} s (fitter build + first fit), "
         f"warm {warm_s:.3f} s per fit_toas(maxiter=3), "
         f"{len(toas) / warm_s:.1f} TOAs/s")
-    try:
-        profile_breakdown(warm, warm_s)
-    except Exception as e:  # a measurement, not a check: report and go on
-        log(f"profile: unavailable ({type(e).__name__}: {e})")
-    return launches, f
+    profile_breakdown(warm, warm_s, "fit")
+    return launches, f, start_values
 
 
-def profile_breakdown(fn, wall_s):
-    """Device time by kernel over one warm fit (torch.profiler)."""
+def profile_breakdown(fn, wall_s, label):
+    """Device time by kernel over one warm call of ``fn``
+    (torch.profiler); returns (device busy share of its wall time,
+    device ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -319,14 +344,16 @@ def profile_breakdown(fn, wall_s):
     dev_us = sum(e.self_device_time_total for e in kernels)
     rows = sorted(kernels, key=lambda e: -e.self_device_time_total)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "fit_profile.txt"), "w") as fh:
+    with open(os.path.join(OUT_DIR, f"{label}_profile.txt"), "w") as fh:
         fh.write(ka.table(sort_by="self_device_time_total", row_limit=40))
     top = [(e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count)
            for e in rows[:8]]
-    log(f"profile: one warm fit, wall {wall:.3f} s (unprofiled "
+    busy = dev_us / 1e6 / wall
+    log(f"profile: one warm {label}, wall {wall:.3f} s (unprofiled "
         f"{wall_s:.3f} s), device busy {dev_us / 1e3:.3f} ms "
-        f"({dev_us / 1e6 / wall * 100:.2f}% of wall); top kernels "
+        f"({busy * 100:.2f}% of wall); top kernels "
         f"[name, ms, calls] {json.dumps(top)}")
+    return busy, dev_us / 1e3
 
 
 def phase_kernel_table(f, launches, k1_err, k2_err):
@@ -402,6 +429,339 @@ def phase_kernel_table(f, launches, k1_err, k2_err):
     return rows
 
 
+def phase_torch_rows(f, start_values):
+    """The fit's torch-route rows of the kernel table (q2 rows 3, 5, 6,
+    8): calls per warm fit from ``start_values`` (counted by wrapping
+    each function for one fit), device time and kernels per call at the
+    fit's shapes, and the bound."""
+    import torch
+
+    import pint_tpu_torch.fitter as tfit
+    import pint_tpu_torch.linalg as tl
+    import pint_tpu_torch.models.binary.base as bbase
+    from pint_tpu_torch.models.binary.kepler import kepler_eccentric_anomaly
+    from pint_tpu_torch.models.timing_model import PreparedModel
+
+    prep = f.prepared
+    counts = {"kepler": 0, "cholesky": 0, "gls": 0, "fold": 0}
+    patches = [(bbase, "kepler_eccentric_anomaly", "kepler"),
+               (tl, "cho_factor", "cholesky"),
+               (tfit, "gls_normal_solve", "gls"),
+               (PreparedModel, "_phase_raw_at", "fold")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+
+    def counting(fn, key):
+        def wrapped(*a, **k):
+            counts[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    try:
+        for obj, name, key in patches:
+            setattr(obj, name, counting(getattr(obj, name), key))
+        f.model.values.update(start_values)
+        f.fit_toas(maxiter=3)
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+
+    n = len(f.toas)
+    values = prep.values_dict()
+    data = f._fit_data
+    gram = data["noise_gram"]
+    sigma, phi, U = data["noise_sigma"], data["noise_phi"], f.resids._U_ext
+    vec = torch.stack([values[k] for k in f._traced_free])
+    r, J = f._rj(vec, values, data)
+    n_par, k = J.shape[1], gram.shape[0]
+    k_dense = U.pre.shape[1] + U.post.shape[1]
+    depth = next(c["kepler_iters"] for c in prep.ctx.values()
+                 if "kepler_iters" in c)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    mean_anom = torch.rand(n, generator=g, device="cuda",
+                           dtype=torch.float64) * 6.283185307179586
+    ecc = torch.tensor(2.17e-5, dtype=torch.float64, device="cuda")
+    nb = n_par + k
+    # (fn, bytes, operations, peak): the factorizations are GEMM-shaped
+    rows = {
+        "3 kepler": (lambda: kepler_eccentric_anomaly(mean_anom, ecc, depth),
+                     16 * n, n * (2 + 8 * depth), FP64_FLOPS),
+        "5 capacity cholesky": (lambda: tl.cho_factor(gram),
+                                16 * k * k, k**3 / 3, FP64_TC_FLOPS),
+        "6 gls_normal_solve": (
+            lambda: tl.gls_normal_solve(r, J, sigma, U, phi, gram=gram,
+                                        with_health=True),
+            8 * (n * n_par + 2 * n + n * k_dense + k * k + nb * nb),
+            2 * n * n_par * (n_par + k_dense + 1) + n * n_par
+            + 10 / 3 * nb**3, FP64_TC_FLOPS),
+        "8 delay/phase fold": (
+            lambda: prep._phase_raw_at(values, prep.batch, prep.ctx,
+                                       prep.tzr_batch, prep.tzr_ctx),
+            n * (8 * 3 + 24 * 3 + 16), 0, FP64_FLOPS),
+    }
+    out = {}
+    for (name, (fn, nbytes, nflops, peak)), key in zip(
+            rows.items(), ("kepler", "cholesky", "gls", "fold")):
+        ms, kern = device_ms(fn, reps=20, warmup=3)
+        if ms is None:
+            ms = cuda_ms(fn, reps=20)
+        b, by = bound_ms(nbytes, nflops, peak)
+        out[name] = {"calls_per_fit": counts[key], "ms": ms,
+                     "kernels_per_call": kern, "bound_ms": b,
+                     "bound_by": by, "plain_ms": None, "library_ms": None}
+    log(f"torch rows at the fit's shapes (N={n}, K={k}, n_par={n_par}, "
+        f"Kepler depth {depth}): " + json.dumps(out))
+    return out
+
+
+def phase_gw(arrays, pairs):
+    """The GW path on the 68-pulsar case, held to its JAX answers."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.gw.os import K4, OptimalStatistic
+    from pint_tpu_torch.linalg import K2, K3
+
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    nmodes = int(arrays["ref_nmodes"])
+    amps, gams = arrays["ref_draws_log10_amp"], arrays["ref_draws_gamma"]
+    la, ga = (float(x) for x in arrays["ref_lnlike_point"])
+    grid_a, grid_g = arrays["ref_grid_log10_amp"], arrays["ref_grid_gamma"]
+    n_pts = grid_a.size * grid_g.size
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def run_path(ost):
+        res, t_os = timed(ost.compute)
+        marg, t_marg = timed(lambda: ost.noise_marginalized(amps, gams))
+        crn = ost.common_process()
+        lnl, t_lnl = timed(lambda: crn.lnlike(la, ga))
+        surf, t_grid = timed(lambda: crn.lnlike_grid(grid_a, grid_g))
+        return (res, marg, lnl, surf, crn), {
+            "compute_s": t_os, "noise_marginalized_32_s": t_marg,
+            "lnlike_s": t_lnl, "lnlike_grid_256_s": t_grid}
+
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    ost, t_build = timed(lambda: OptimalStatistic(pairs, nmodes=nmodes,
+                                                  device="cuda"))
+    (res, marg, lnl, surf, crn), cold = run_path(ost)
+    launches = {n: k.launches for n, k in kernels.items()}
+    cold["build_s"] = t_build
+    log(f"gw: launches during the path {launches}")
+
+    errs = {
+        "os_ahat2": abs(res.ahat2 / float(arrays["ref_os_ahat2"]) - 1),
+        "os_snr": abs(res.snr / float(arrays["ref_os_snr"]) - 1),
+        "os_sigma_ahat2": abs(res.sigma_ahat2
+                              / float(arrays["ref_os_sigma_ahat2"]) - 1),
+        "os_rho": tol.vector_rel(res.rho, arrays["ref_os_rho"]),
+        "os_sig": tol.vector_rel(res.sig, arrays["ref_os_sig"]),
+        "marg_ahat2": tol.vector_rel(marg[0], arrays["ref_marg_ahat2"]),
+        "marg_snr": tol.vector_rel(marg[1], arrays["ref_marg_snr"]),
+        "marg_sigma_ahat2": tol.vector_rel(
+            marg[2], arrays["ref_marg_sigma_ahat2"]),
+        "lnlike": abs(lnl / float(arrays["ref_lnlike"]) - 1),
+        "grid": float(np.max(np.abs(surf / arrays["ref_grid_lnlike"]
+                                    - 1))),
+    }
+    tols = {k: (tol.GW_LNLIKE_REL if k in ("lnlike", "grid")
+                else tol.GW_OS_REL) for k in errs}
+    peak_at = [int(i) for i in np.unravel_index(np.argmax(surf),
+                                                 surf.shape)]
+    log(f"gw: OS ahat2 {res.ahat2!r} (JAX {float(arrays['ref_os_ahat2'])!r})"
+        f", snr {res.snr!r}, sigma_ahat2 {res.sigma_ahat2!r}; lnlike "
+        f"{lnl!r} (JAX {float(arrays['ref_lnlike'])!r}); grid max "
+        f"{float(np.max(surf))!r} at (log10 A, gamma) = "
+        f"({grid_a[peak_at[0]]}, {grid_g[peak_at[1]]})")
+    log("gw: observed relative errors " + json.dumps(errs)
+        + " tolerances " + json.dumps(tols))
+    bad = [k for k in errs if not (errs[k] <= tols[k])]
+    if bad:
+        raise AssertionError(f"GW path disagrees with JAX on {bad}")
+    if not all(launches[k] > 0 for k in ("K1", "K3", "K4")):
+        raise AssertionError(f"a kernel of the GW path never ran: "
+                             f"{launches}")
+
+    # warm: the same engines again (the build once more, for its time)
+    _, warm_build = timed(lambda: OptimalStatistic(pairs, nmodes=nmodes,
+                                                   device="cuda"))
+    _, warm = run_path(ost)
+    warm["build_s"] = warm_build
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _, t_grid = timed(lambda: crn.lnlike_grid(grid_a, grid_g))
+    peak = torch.cuda.max_memory_allocated()
+    log("gw: wall time cold " + json.dumps(cold) + " warm "
+        + json.dumps(warm))
+    log(f"gw: lnlike_grid {n_pts} points in {t_grid:.4f} s warm = "
+        f"{n_pts / t_grid:.1f} points/s, {crn.grid_chunk()} points per "
+        f"batch; peak device memory {peak / 2**30:.3f} GiB during the "
+        f"grid ({base_mem / 2**30:.3f} GiB held before it)")
+    busy, dev_ms = profile_breakdown(
+        lambda: crn.lnlike_grid(grid_a, grid_g), t_grid, "grid")
+    # one point's least work: the LU of its (P m2)^2 system and one
+    # solve; reads the per-pulsar m, the ORF and the spectrum
+    pm = crn.n_pulsars * 2 * crn.nmodes
+    m2 = 2 * crn.nmodes
+    b, by = bound_ms(8 * (crn.n_pulsars * (m2 * m2 + m2)
+                          + crn.n_pulsars**2 + m2),
+                     2 / 3 * pm**3 + 2 * pm**2, FP64_TC_FLOPS)
+    log(f"gw: grid device time per point {dev_ms / n_pts!r} ms (all "
+        f"kernels of one warm grid), bound {b!r} ms ({by}; the LU of "
+        f"{pm}^2 and one solve at the fp64 tensor-core peak)")
+    return {"launches": launches, "ost": ost, "cold": cold, "warm": warm,
+            "grid_points_per_s": n_pts / t_grid, "peak_bytes": peak,
+            "grid_busy": busy}
+
+
+def _check_sum_bound(name, got, again, plain, abs_sum):
+    """got vs plain within KERNEL_SUM_REL * abs_sum per entry; got and
+    again bit-identical.  Returns max |got - plain|."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+
+    same = torch.equal(got.view(torch.int64), again.view(torch.int64))
+    diff = torch.abs(got - plain)
+    ratio = float(torch.max(diff / torch.clamp(abs_sum, min=1e-300)))
+    ok = bool(torch.all(diff <= tol.KERNEL_SUM_REL * abs_sum))
+    err = float(torch.max(diff))
+    log(f"{name}: run-to-run bit-identical {same}, max |kernel - plain| "
+        f"{err!r}, max |d| / sum|terms| {ratio!r} (limit "
+        f"{tol.KERNEL_SUM_REL:g})")
+    if not (same and ok):
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def synthetic_stack(n_psr, n_rows, nb, m2, seed=0):
+    """A uniform RaggedStack of random rows on the card."""
+    import torch
+
+    from pint_tpu_torch.linalg import RaggedStack
+
+    w = nb + m2 + 1
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.randn(n_psr * n_rows * w, generator=g, device="cuda",
+                    dtype=torch.float64)
+    sigma = 1e-6 * (0.5 + torch.rand(n_psr * n_rows, generator=g,
+                                     device="cuda", dtype=torch.float64))
+    rows = torch.arange(n_psr + 1, device="cuda") * n_rows
+    return RaggedStack(t=t, sigma=sigma, row_off=rows, t_off=rows * w,
+                       nb=torch.full((n_psr,), nb, dtype=torch.int32,
+                                     device="cuda"),
+                       nb_host=(nb,) * n_psr, m2=m2)
+
+
+def phase_k3(st_case):
+    """K3 against its plain version on the card at the case's shapes and
+    at 10^4 rows per pulsar; times beside the padded einsum."""
+    import dataclasses
+
+    import torch
+
+    from pint_tpu_torch.linalg import kron_gram_cuda, kron_gram_plain
+
+    out = {}
+    for label, st in (("case", st_case),
+                      ("n10k", synthetic_stack(68, 10_000, 63, 28))):
+        g1, l1 = kron_gram_cuda(st)
+        g2, l2 = kron_gram_cuda(st)
+        gp, lp = kron_gram_plain(st)
+        ga, _ = kron_gram_plain(dataclasses.replace(st, t=st.t.abs()))
+        la = torch.stack([torch.sum(torch.abs(torch.log(s**2)))
+                          for s in torch.split(st.sigma, st.n_rows)])
+        torch.cuda.synchronize()
+        err = max(_check_sum_bound(f"k3 {label} gram", g1, g2, gp, ga),
+                  _check_sum_bound(f"k3 {label} ld_white", l1, l2, lp, la))
+        n_rows = st.n_rows
+        widths = [nb + st.m2 + 1 for nb in st.nb_host]
+        nbytes = 8 * (st.t.numel() + st.sigma.numel() + g1.numel()
+                      + l1.numel())
+        # per row: w weighted entries, a multiply-add per entry i <= j,
+        # 1/sigma^2 and log sigma^2
+        nflops = sum(n * (w * (w + 1) + w + 4)
+                     for n, w in zip(n_rows, widths))
+        b, by = bound_ms(nbytes, nflops, FP64_TC_FLOPS)
+        ms, how = kernel_ms(lambda: kron_gram_cuda(st))
+        plain, _ = kernel_ms(lambda: kron_gram_plain(st))
+        lib = None
+        if len(set(n_rows)) == 1 and len(set(widths)) == 1:
+            t3 = st.t.view(st.n_psr, n_rows[0], widths[0])
+            w2 = (1.0 / st.sigma**2).view(st.n_psr, n_rows[0])
+            lib, _ = kernel_ms(lambda: torch.einsum("pni,pn,pnj->pij",
+                                                    t3, w2, t3))
+        out[label] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": b, "bound_by": by, "max_abs_err": err,
+                      "timed_by": how, "bytes": nbytes, "flops": nflops,
+                      "per_call_with_enqueue_ms":
+                          cuda_ms(lambda: kron_gram_cuda(st), reps=20)}
+        log(f"k3 {label}: P={st.n_psr} rows {n_rows[0]}..{max(n_rows)} "
+            f"widths {min(widths)}..{max(widths)}: " + json.dumps(out[label]))
+    return out
+
+
+def phase_k4(ost):
+    """K4 against its plain version at the OS's shapes; times beside the
+    two-matmul library yardstick."""
+    import torch
+
+    from pint_tpu_torch.gw.os import os_pairs_cuda, os_pairs_plain
+    from pint_tpu_torch.linalg import kron_pulsar_terms
+
+    _, z, M, _ = kron_pulsar_terms(ost.kron_data.gram,
+                                   ost.kron_data.phi_noise)
+    ph, ii, jj = ost._phihat, ost._ii_t, ost._jj_t
+    n1, d1 = os_pairs_cuda(z, M, ph, ii, jj)
+    n2, d2 = os_pairs_cuda(z, M, ph, ii, jj)
+    np_, dp = os_pairs_plain(z, M, ph, ii, jj)
+    na, da = os_pairs_plain(z.abs(), M.abs(), ph.abs(), ii, jj)
+    torch.cuda.synchronize()
+    err = max(_check_sum_bound("k4 num", n1, n2, np_, na),
+              _check_sum_bound("k4 den", d1, d2, dp, da))
+    p, m2 = z.shape
+    n_pairs = ii.numel()
+    nbytes = 8 * (z.numel() + M.numel() + ph.numel() + 2 * n_pairs
+                  + 2 * n_pairs)
+    # phihat z and phihat^1/2 M phihat^1/2 once per pulsar, then a dot
+    # product of length m2 (num) and m2^2 (den) per pair
+    nflops = p * (2 * m2 * m2 + m2) + n_pairs * 2 * (m2 * m2 + m2)
+    b, by = bound_ms(nbytes, nflops, FP64_TC_FLOPS)
+    zp = z * ph
+    sq = torch.sqrt(ph)
+    V = (sq[:, None] * M * sq[None, :]).reshape(p, m2 * m2)
+
+    def lib():
+        return zp @ z.T, V @ V.T
+    ms, how = kernel_ms(lambda: os_pairs_cuda(z, M, ph, ii, jj))
+    plain, _ = kernel_ms(lambda: os_pairs_plain(z, M, ph, ii, jj))
+    lib_ms, _ = kernel_ms(lib)
+    out = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+           "bound_ms": b, "bound_by": by, "max_abs_err": err,
+           "timed_by": how, "n_pairs": n_pairs, "m2": m2,
+           "per_call_with_enqueue_ms": cuda_ms(
+               lambda: os_pairs_cuda(z, M, ph, ii, jj))}
+    log("k4 at the OS's shapes: " + json.dumps(out))
+    return out
+
+
+def gw_row(name, source, replaces, launches, m):
+    return {"name": name, "route": "cuda",
+            "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": m["max_abs_err"],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"]}
+
+
 def main():
     import torch
 
@@ -410,7 +770,7 @@ def main():
               file=sys.stderr)
         return 2
     try:
-        from pint_tpu_torch.convert import load_case
+        from pint_tpu_torch.convert import load_case, load_pta_case
     except ImportError as e:
         print(f"chip_smoke: cannot import pint_tpu_torch ({e}); run from "
               "the repo root", file=sys.stderr)
@@ -434,14 +794,28 @@ def main():
     k1_err = run("k1", phase_k1)
     arrays, model, toas, tzr = load_case()
     got = run("fit", phase_fit, arrays, model, toas, tzr)
-    k2_err = None
     table = None
     if got is not None:
-        launches, f = got
+        launches, f, start_values = got
         k2_err = run("k2", phase_k2, f.resids._U_ext)
         if k1_err is not None and k2_err is not None:
             table = run("kernel table", phase_kernel_table, f, launches,
                         k1_err, k2_err)
+        run("torch rows", phase_torch_rows, f, start_values)
+    pta_arrays, pairs = load_pta_case()
+    gw = run("gw path", phase_gw, pta_arrays, pairs)
+    if gw is not None:
+        k3 = run("k3", phase_k3, gw["ost"].kron_data.stack)
+        k4 = run("k4", phase_k4, gw["ost"])
+        if table is not None and k3 is not None and k4 is not None:
+            table += [
+                gw_row("kron_gram_ragged", "kron_gram.cu",
+                       "pint_tpu/linalg.py:605", gw["launches"]["K3"],
+                       k3["case"]),
+                gw_row("os_pair_stage", "os_pairs.cu",
+                       "pint_tpu/gw/os.py:86", gw["launches"]["K4"], k4)]
+        else:
+            table = None
     leaked = [m for m in ("jax", "pint_tpu") if m in sys.modules]
     if leaked:
         failures.append(f"imports {leaked}")

@@ -30,6 +30,9 @@ from pint_tpu_torch.toa import TOATable
 #: the 10k-TOA, 400-epoch B1855-like case the chip check fits
 B1855_EPOCHS_10K = Path(__file__).resolve().parent / "data" \
     / "b1855_epochs_10k.npz"
+#: the 68-pulsar, 500-TOA synthetic array of the GW path, with the JAX
+#: CPU answers (``tools/export_torch_pta_case.py``)
+PTA68_500 = Path(__file__).resolve().parent / "data" / "pta68_500.npz"
 
 #: component class -> constructor arguments the spec may carry
 _COMPONENTS = {
@@ -149,3 +152,22 @@ def load_case(path=B1855_EPOCHS_10K):
         arrays = {k: z[k] for k in z.files}
     model, toas, tzr = case_from_arrays(arrays)
     return arrays, model, toas, tzr
+
+
+def pta_case_from_arrays(arrays):
+    """``[(model, toas, tzr), ...]`` of a PTA case: pulsar i's case
+    arrays carry the prefix ``p{i:02d}_``."""
+    out = []
+    for i in range(int(arrays["n_psr"])):
+        pre = f"p{i:02d}_"
+        out.append(case_from_arrays(
+            {k[len(pre):]: v for k, v in arrays.items()
+             if k.startswith(pre)}))
+    return out
+
+
+def load_pta_case(path=PTA68_500):
+    """(arrays dict, [(model, toas, tzr), ...]) from a PTA case file."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    return arrays, pta_case_from_arrays(arrays)

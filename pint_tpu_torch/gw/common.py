@@ -1,0 +1,250 @@
+"""Common red process (CRN/GWB) likelihood across a pulsar array
+(pint_tpu gw/common.py), kron-structured path.
+
+Over the stacked residuals of the array the covariance is
+
+    C = blockdiag_a(diag(sigma_a^2) + U_a diag(phi_a) U_a^T)
+        + blockdiag_a(F_a) kron(Gamma, diag(phi_gw)) blockdiag_a(F_a)^T
+
+with U_a each pulsar's own noise basis plus its mean-offset and timing
+design columns, F_a the GW Fourier basis at the array's common
+frequencies k/T and Gamma the ORF.  The likelihood goes through the
+two-level Woodbury of :mod:`pint_tpu_torch.linalg`: per-pulsar grams
+(kernel K3 over a ragged stack, built once), a batched per-pulsar
+Cholesky, and one (P m2, P m2) LU per (log10 A, gamma) point.
+
+The dense CRN path of the reference (``kron=False``) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import List, NamedTuple
+
+import numpy as np
+import torch
+
+from pint_tpu_torch import resolve_device
+from pint_tpu_torch.fitter import FitDivergedError
+from pint_tpu_torch.gw.orf import orf_matrix, pulsar_positions
+from pint_tpu_torch.linalg import (KronGram, KronPhi, RaggedStack,
+                                   kron_gram_precompute, kron_gw_terms,
+                                   kron_pulsar_terms, ragged_stack,
+                                   su_to_dense)
+from pint_tpu_torch.models.noise import gwb_phi, toa_fourier_basis
+from pint_tpu_torch.residuals import MEAN_OFFSET_WEIGHT, Residuals
+
+#: pad-row sigma [s] of the reference's padded per-pulsar stacks; the
+#: port's ragged stacks have no pad rows, and the tests pad with it to
+#: feed the reference
+PAD_SIGMA_S = 1e16
+
+#: default device-memory budget of one lnlike_grid chunk [bytes]
+GRID_MEM_BYTES = 8 << 30
+
+
+def common_tspan_s(toas_list) -> float:
+    """Array-wide span [s]: the largest minus the smallest TDB tick over
+    every pulsar, each extreme converted as float(ticks) / 2^32."""
+    lo = min(float(t.ticks.min()) for t in toas_list) / 2**32
+    hi = max(float(t.ticks.max()) for t in toas_list) / 2**32
+    return hi - lo
+
+
+class PulsarGWData(NamedTuple):
+    """One pulsar's ingredients (host numpy, at the model's values)."""
+
+    r: np.ndarray      # (n,) time residuals [s], weighted mean removed
+    sigma: np.ndarray  # (n,) noise-scaled uncertainties [s]
+    U: np.ndarray      # (n, nb) own noise basis + offset + timing columns
+    phi: np.ndarray    # (nb,) own basis weights [s^2]
+    F: np.ndarray      # (n, 2 nmodes) common-frequency GW basis
+    name: str
+
+
+def _timing_design(resid: Residuals) -> torch.Tensor:
+    """Column-normalized d(time residual)/d(free timing parameter),
+    ``torch.func.jacfwd`` over ``free_timing_params``; a zero column
+    keeps norm 1."""
+    names = list(resid.model.free_timing_params)
+    n = len(resid.toas)
+    if not names:
+        return torch.zeros((n, 0), dtype=torch.float64, device=resid.device)
+    base = resid.prepared.values_dict()
+
+    def f(vec):
+        values = dict(base)
+        for i, k in enumerate(names):
+            values[k] = vec[i]
+        return resid.time_resids_at(values)
+
+    vec0 = torch.stack([base[k] for k in names])
+    J = torch.func.jacfwd(f)(vec0)
+    norm = torch.linalg.norm(J, dim=0)
+    return J / torch.where(norm == 0.0, torch.ones_like(norm), norm)
+
+
+def build_pulsar_data(pairs, *, nmodes=10, tspan_s=None,
+                      marginalize_timing=True, device=None):
+    """(data, positions (P, 3), freqs (2 nmodes,), df, resids) for
+    ``pairs`` = ``[(model, toas, tzr), ...]`` (pint_tpu
+    gw/common.py:119).  Residuals and the timing design are computed on
+    ``device`` (CUDA unless given) and returned on the host."""
+    device = resolve_device(device)
+    if len(pairs) < 2:
+        raise ValueError(f"a cross-correlation analysis needs >= 2 "
+                         f"pulsars, got {len(pairs)}")
+    resids = [Residuals(t, m, tzr, device=device) for m, t, tzr in pairs]
+    T = float(tspan_s) if tspan_s else common_tspan_s(
+        [r.toas for r in resids])
+    pos = pulsar_positions([r.model for r in resids])
+    out = []
+    freqs = None
+    for resid in resids:
+        values = resid.prepared.values_dict()
+        r = resid.time_resids_at(values).cpu().numpy()
+        sigma = resid.sigma_at(values).cpu().numpy()
+        # the noise basis without the appended mean-offset column
+        U = su_to_dense(resid._U_ext)[:, :-1].cpu().numpy()
+        phi = resid.prepared.noise_weights_fn(values).cpu().numpy()
+        cols = [U, np.ones((len(r), 1))]
+        ws = [phi, np.array([MEAN_OFFSET_WEIGHT])]
+        if marginalize_timing:
+            J = _timing_design(resid).cpu().numpy()
+            cols.append(J)
+            ws.append(np.full(J.shape[1], MEAN_OFFSET_WEIGHT))
+        F, fgrid = toa_fourier_basis(resid.toas, nmodes, tspan_s=T)
+        if freqs is None:
+            freqs = fgrid
+        out.append(PulsarGWData(
+            r=r, sigma=sigma, U=np.concatenate(cols, axis=1),
+            phi=np.concatenate(ws), F=F, name=resid.model.name))
+    return out, pos, freqs, float(freqs[0]), resids
+
+
+class KronData(NamedTuple):
+    """The device side of an array: the ragged stack, its grams (K3,
+    built once), the zero-padded noise weights and the ORF."""
+
+    stack: RaggedStack
+    gram: KronGram
+    phi_noise: torch.Tensor
+    orf: torch.Tensor
+
+
+def kron_data(data: List[PulsarGWData], orf, device) -> KronData:
+    """The :class:`KronData` of ``data`` on ``device``; launches K3 once
+    on CUDA."""
+    st = ragged_stack([d.r for d in data], [d.sigma for d in data],
+                      [d.U for d in data], [d.F for d in data], device)
+    phi = np.zeros((len(data), st.nb_max))
+    for a, d in enumerate(data):
+        phi[a, :len(d.phi)] = d.phi
+    return KronData(stack=st, gram=kron_gram_precompute(st),
+                    phi_noise=torch.as_tensor(phi, device=device),
+                    orf=torch.as_tensor(np.asarray(orf, np.float64),
+                                        device=device))
+
+
+class CommonProcess:
+    """The PTA likelihood with an ORF-correlated common power-law
+    process in (log10 A, gamma); timing parameters marginalized through
+    their design columns (``marginalize_timing``).
+
+    ``CommonProcess(pairs, nmodes=10, orf="hd", device=None)``, pairs
+    ``[(model, toas, tzr), ...]``; runs on CUDA unless ``device`` names
+    another device."""
+
+    def __init__(self, pairs=None, *, nmodes=10, orf="hd", tspan_s=None,
+                 marginalize_timing=True, kron=True, device=None,
+                 _prebuilt=None):
+        if not kron:
+            raise NotImplementedError(
+                "the dense CRN path (kron=False) is not ported")
+        self.device = resolve_device(device)
+        if _prebuilt is not None:
+            # (data, pos, freqs, df, kron data) of a sibling engine
+            data, pos, freqs, df, kd = _prebuilt
+        else:
+            data, pos, freqs, df, _ = build_pulsar_data(
+                pairs, nmodes=nmodes, tspan_s=tspan_s,
+                marginalize_timing=marginalize_timing, device=self.device)
+            kd = kron_data(data, orf_matrix(pos, orf), self.device)
+        self.data = data
+        self.names = [d.name for d in data]
+        self.n_pulsars = len(data)
+        self.nmodes = int(nmodes)
+        self.pos = pos
+        self.orf_kind = orf
+        self.freqs = torch.as_tensor(np.asarray(freqs), device=self.device)
+        self.df = float(df)
+        self.n_toa_total = int(sum(len(d.r) for d in data))
+        self.kron_data = kd
+        self._pulsar_terms = None
+
+    @property
+    def pulsar_terms(self):
+        """(chi2_a, x_a, m_a, ld_a): the per-pulsar reduction, fixed
+        while the noise weights are, so shared by every GW point."""
+        if self._pulsar_terms is None:
+            self._pulsar_terms = kron_pulsar_terms(
+                self.kron_data.gram, self.kron_data.phi_noise)
+        return self._pulsar_terms
+
+    def _lnlike_points(self, log10_amps, gammas):
+        """(n,) log-likelihoods at n (log10 A, gamma) points (tensors)."""
+        chi2_d, x, m, ld_d = self.pulsar_terms
+        phi_gw = gwb_phi(self.freqs, 10.0 ** log10_amps[:, None],
+                         gammas[:, None], self.df)
+        kp = KronPhi(orf=self.kron_data.orf, phi_gw=phi_gw,
+                     phi_noise=self.kron_data.phi_noise)
+        corr, ld_t = kron_gw_terms(x, m, kp)
+        chi2 = torch.sum(chi2_d) - corr
+        logdet = torch.sum(ld_d) + ld_t
+        return (-0.5 * (chi2 + logdet)
+                - 0.5 * self.n_toa_total * math.log(2.0 * math.pi))
+
+    def lnlike(self, log10_amp, gamma, check=True) -> float:
+        """Log-likelihood at one (log10 A, gamma).  ``check``: a
+        non-finite value raises :class:`FitDivergedError`."""
+        pt = torch.tensor([[log10_amp, gamma]], dtype=torch.float64,
+                          device=self.device)
+        out = float(self._lnlike_points(pt[:, 0], pt[:, 1])[0])
+        if check and not np.isfinite(out):
+            raise FitDivergedError(
+                f"gw.common.lnlike({log10_amp}, {gamma}) non-finite")
+        return out
+
+    def grid_chunk(self) -> int:
+        """Grid points per device batch under :data:`GRID_MEM_BYTES`:
+        each point holds its (P m2)^2 system twice (the matrix and its
+        LU) plus a third copy's headroom."""
+        pm = self.n_pulsars * 2 * self.nmodes
+        return max(1, GRID_MEM_BYTES // (3 * pm * pm * 8))
+
+    def lnlike_grid(self, log10_amps, gammas):
+        """(A, G) log-likelihood surface over the outer product of the
+        two 1-d grids, in batches of :meth:`grid_chunk` points.
+        Non-finite points are counted on the device and warned about
+        after one host read."""
+        a = np.atleast_1d(np.asarray(log10_amps, np.float64))
+        g = np.atleast_1d(np.asarray(gammas, np.float64))
+        aa, gg = np.meshgrid(a, g, indexing="ij")
+        pts_a = torch.as_tensor(aa.ravel(), device=self.device)
+        pts_g = torch.as_tensor(gg.ravel(), device=self.device)
+        chunk = self.grid_chunk()
+        parts = []
+        n_bad = torch.zeros((), dtype=torch.int64, device=self.device)
+        for s in range(0, aa.size, chunk):
+            out = self._lnlike_points(pts_a[s:s + chunk],
+                                      pts_g[s:s + chunk])
+            n_bad += torch.sum(~torch.isfinite(out))
+            parts.append(out)
+        surf = torch.cat(parts).cpu().numpy().reshape(aa.shape)
+        n_bad = int(n_bad)
+        if n_bad:
+            warnings.warn(f"lnlike_grid: {n_bad}/{surf.size} non-finite "
+                          "grid points (degenerate prior or corrupted "
+                          "inputs)")
+        return surf

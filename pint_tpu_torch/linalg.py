@@ -13,6 +13,12 @@ column), rows added in ascending order: deterministic, unlike
 ``index_add_`` with atomics) and on the CPU by the plain version
 :func:`segment_sum_plain`.
 
+The PTA likelihood's stacked-array covariance goes through the
+Kronecker-structured two-level Woodbury (the last section): per-pulsar
+weighted grams over a :class:`RaggedStack` (kernel K3,
+``csrc/kron_gram.cu``, on CUDA; :func:`kron_gram_plain` on the CPU), a
+batched per-pulsar Cholesky, and one LU of the (P m2, P m2) GW sector.
+
 Where pint_tpu and PyTorch part ways:
 
 - ``jax.scipy.linalg.cho_factor`` returns NaN on a failed
@@ -224,10 +230,12 @@ def _weighted_gram(U, w):
 # --------------------------------------------------------------------------
 
 def cho_factor(a):
-    """Lower Cholesky factor; NaN-filled when the factorization fails
+    """Lower Cholesky factor of ``a`` (..., K, K); a matrix whose
+    factorization fails comes back NaN-filled
     (``jax.scipy.linalg.cho_factor`` semantics), with no host sync."""
     L, info = torch.linalg.cholesky_ex(a)
-    return torch.where(info == 0, L, torch.full_like(L, float("nan")))
+    ok = (info == 0)[..., None, None]
+    return torch.where(ok, L, torch.full_like(L, float("nan")))
 
 
 def cho_solve(L, b):
@@ -268,6 +276,18 @@ def woodbury_chi2_logdet(r, sigma, U, phi):
     logdet = (torch.sum(torch.log(nvec)) + logdet_phi
               + 2.0 * torch.sum(torch.log(torch.diagonal(L))))
     return chi2, logdet
+
+
+def woodbury_solve(sigma, U, phi, y):
+    """C^-1 y for C = diag(sigma^2) + U diag(phi) U^T, y (N,) or (N, M)
+    (pint_tpu linalg.py:324, vector phi): the plain whitening the
+    optimal statistic's gram route is held to."""
+    nvec, L, _ = _capacity(sigma, U, phi)
+    y2 = y if y.dim() == 2 else y[:, None]
+    ninv_y = y2 / nvec[:, None]
+    x = cho_solve(L, _ut_dot(U, ninv_y))
+    out = ninv_y - _u_dot(U, x) / nvec[:, None]
+    return out if y.dim() == 2 else out[:, 0]
 
 
 def noise_gram_precompute(sigma, U, phi):
@@ -352,3 +372,254 @@ def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
             cond_log10=torch.log10(evmax / torch.clamp(kept_min,
                                                        min=1e-300))),)
     return out
+
+
+# --------------------------------------------------------------------------
+# Kronecker-structured stacked-array prior (the GWB cross-pulsar block)
+# --------------------------------------------------------------------------
+
+#: kernel K3 (replaces pint_tpu linalg.py:605 kron_gram_precompute)
+K3 = CudaKernel(
+    "kron_gram_ragged", "kron_gram.cu", "kron_gram_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
+
+#: relative ridge on each GW prior block's diagonal (pint_tpu
+#: linalg.kron_gw_blocks): the dense reference's ``_phi_terms`` jitter
+_GW_JITTER = 1e-12
+
+
+class KronPhi(NamedTuple):
+    """The stacked PTA prior ``blockdiag_a(diag(phi_noise[a])) (+)
+    kron(orf, diag(phi_gw))`` as its three factors (pint_tpu
+    linalg.KronPhi).  ``phi_noise`` (P, nb_max) is zero-padded; a zero
+    weight pins its (absent) column through ``_PHI_FLOOR``.
+    ``phi_gw`` may carry leading batch dimensions (grid points)."""
+
+    orf: torch.Tensor
+    phi_gw: torch.Tensor
+    phi_noise: torch.Tensor
+
+
+class KronGram(NamedTuple):
+    """Per-pulsar weighted grams, padded to the widest pulsar (pint_tpu
+    linalg.KronGram): everything of the likelihood that depends on
+    (r, sigma, U, F) and not on the prior weights."""
+
+    g_uu: torch.Tensor      # (P, nb, nb)  U^T W U
+    g_uf: torch.Tensor      # (P, nb, m2)  U^T W F
+    g_ff: torch.Tensor      # (P, m2, m2)  F^T W F
+    b_u: torch.Tensor       # (P, nb)      U^T W r
+    b_f: torch.Tensor       # (P, m2)      F^T W r
+    rr: torch.Tensor        # (P,)         r^T W r
+    ld_white: torch.Tensor  # (P,)         sum log sigma^2
+
+
+@dataclass
+class RaggedStack:
+    """Every pulsar's rows ``T_a = [U_a | F_a | r_a]``, ragged in rows
+    and in U's width (no padding).
+
+    t: flat float64, pulsar a's row-major (n_a, nb_a + m2 + 1) block at
+    ``t_off[a]``; sigma: (N_tot,), pulsar a's at ``row_off[a] ..
+    row_off[a+1]``; nb: (P,) int32 widths of U."""
+
+    t: torch.Tensor
+    sigma: torch.Tensor
+    row_off: torch.Tensor
+    t_off: torch.Tensor
+    nb: torch.Tensor
+    nb_host: tuple
+    m2: int
+
+    @property
+    def n_psr(self) -> int:
+        return len(self.nb_host)
+
+    @property
+    def nb_max(self) -> int:
+        return max(self.nb_host)
+
+    @property
+    def n_rows(self) -> tuple:
+        return tuple(int(x) for x in np.diff(self.row_off.cpu().numpy()))
+
+
+def ragged_stack(rs, sigmas, Us, Fs, device) -> RaggedStack:
+    """A :class:`RaggedStack` from per-pulsar host arrays r (n_a,),
+    sigma (n_a,), U (n_a, nb_a), F (n_a, m2)."""
+    m2 = int(np.shape(Fs[0])[1])
+    blocks, nbs, rows = [], [], [0]
+    for r, U, F in zip(rs, Us, Fs):
+        r, U, F = (np.asarray(x, np.float64) for x in (r, U, F))
+        blocks.append(np.concatenate([U, F, r[:, None]], axis=1).ravel())
+        nbs.append(U.shape[1])
+        rows.append(rows[-1] + len(r))
+    sizes = [0] + [b.size for b in blocks]
+    return RaggedStack(
+        t=torch.as_tensor(np.concatenate(blocks), device=device),
+        sigma=torch.as_tensor(np.concatenate(
+            [np.asarray(s, np.float64) for s in sigmas]), device=device),
+        row_off=torch.as_tensor(np.asarray(rows, np.int64), device=device),
+        t_off=torch.as_tensor(np.cumsum(sizes).astype(np.int64),
+                              device=device),
+        nb=torch.as_tensor(np.asarray(nbs, np.int32), device=device),
+        nb_host=tuple(nbs), m2=m2)
+
+
+def _gram_split(gram, ld_white, nb_max) -> KronGram:
+    """KronGram views of the padded (P, Wp, Wp) gram of [U | F | r]."""
+    u, f = slice(0, nb_max), slice(nb_max, gram.shape[-1] - 1)
+    return KronGram(g_uu=gram[:, u, u], g_uf=gram[:, u, f],
+                    g_ff=gram[:, f, f], b_u=gram[:, u, -1],
+                    b_f=gram[:, f, -1], rr=gram[:, -1, -1],
+                    ld_white=ld_white)
+
+
+def kron_gram_plain(st: RaggedStack):
+    """(gram (P, Wp, Wp), ld_white (P,)): the plain PyTorch version of
+    K3, one pulsar at a time."""
+    nb_max, m2 = st.nb_max, st.m2
+    wp = nb_max + m2 + 1
+    dev = st.t.device
+    gram = torch.zeros((st.n_psr, wp, wp), dtype=torch.float64, device=dev)
+    ld = torch.empty(st.n_psr, dtype=torch.float64, device=dev)
+    row_off = st.row_off.cpu().tolist()
+    t_off = st.t_off.cpu().tolist()
+    for a, nb in enumerate(st.nb_host):
+        n = row_off[a + 1] - row_off[a]
+        w = nb + m2 + 1
+        t = st.t[t_off[a]:t_off[a] + n * w].view(n, w)
+        s = st.sigma[row_off[a]:row_off[a + 1]]
+        g = (t * (1.0 / s**2)[:, None]).T @ t
+        cols = torch.cat([torch.arange(nb, device=dev),
+                          torch.arange(nb_max, wp, device=dev)])
+        gram[a, cols[:, None], cols[None, :]] = g
+        ld[a] = torch.sum(torch.log(s**2))
+    return gram, ld
+
+
+def kron_gram_cuda(st: RaggedStack):
+    """Kernel K3 on CUDA tensors; raises on what it does not take."""
+    dev = st.t.device
+    parts = (st.t, st.sigma, st.row_off, st.t_off, st.nb)
+    if dev.type != "cuda" or any(x.device != dev for x in parts):
+        raise ValueError("kron_gram_cuda: every RaggedStack tensor must be "
+                         "on one CUDA device")
+    if st.t.dtype != torch.float64 or st.sigma.dtype != torch.float64 \
+            or st.row_off.dtype != torch.int64 \
+            or st.t_off.dtype != torch.int64 or st.nb.dtype != torch.int32:
+        raise ValueError("kron_gram_cuda: t, sigma float64; row_off, t_off "
+                         "int64; nb int32")
+    if not all(x.is_contiguous() for x in parts):
+        raise ValueError("kron_gram_cuda: inputs must be contiguous")
+    wp = st.nb_max + st.m2 + 1
+    gram = torch.zeros((st.n_psr, wp, wp), dtype=torch.float64, device=dev)
+    ld = torch.empty(st.n_psr, dtype=torch.float64, device=dev)
+    K3.launch(dev, *(x.data_ptr() for x in parts), gram.data_ptr(),
+              ld.data_ptr(), st.n_psr, st.nb_max, st.m2)
+    return gram, ld
+
+
+def kron_gram_precompute(st: RaggedStack) -> KronGram:
+    """The per-pulsar weighted grams: K3 for CUDA tensors, the plain
+    version for CPU tensors."""
+    if st.t.device.type == "cuda":
+        gram, ld = kron_gram_cuda(st)
+    elif st.t.device.type == "cpu":
+        gram, ld = kron_gram_plain(st)
+    else:
+        raise ValueError(f"kron_gram_precompute: no version for "
+                         f"{st.t.device}")
+    return _gram_split(gram, ld, st.nb_max)
+
+
+def kron_gw_blocks(kp: KronPhi):
+    """(..., m2, P, P) per-frequency GW prior blocks ``phi_gw[i] * orf``
+    with the 1e-12 relative diagonal ridge (pint_tpu linalg.py:627)."""
+    orf, phi_gw = kp.orf, kp.phi_gw
+    blocks = phi_gw[..., :, None, None] * orf
+    d = torch.abs(phi_gw[..., :, None] * torch.diagonal(orf)) + _PHI_FLOOR
+    return blocks + torch.diag_embed(_GW_JITTER * d)
+
+
+def kron_phi_dense(kp: KronPhi):
+    """The dense (K, K) prior a :class:`KronPhi` stands for, columns
+    ``[pulsar-major noise | pulsar-major GW]`` (verification form)."""
+    phi_n = torch.diag(kp.phi_noise.reshape(-1))
+    gw = torch.kron(kp.orf, torch.diag(kp.phi_gw))
+    return torch.block_diag(phi_n, gw)
+
+
+def kron_pulsar_terms(pre: KronGram, phi_noise):
+    """Each pulsar's own-noise Woodbury reduction, batched over pulsars
+    (one ``cholesky_ex`` of the (P, nb, nb) capacity matrices):
+
+    chi2_a = r^T C_a^-1 r, x_a = F^T C_a^-1 r, m_a = F^T C_a^-1 F and
+    ld_a = logdet C_a, with C_a = diag(sigma^2) + U diag(phi) U^T.
+
+    x_a and m_a are the optimal statistic's whitened z_a and M_a."""
+    phi_n = torch.clamp(phi_noise, min=_PHI_FLOOR)
+    if pre.g_uu.shape[-1] == 0:
+        return pre.rr, pre.b_f, pre.g_ff, pre.ld_white
+    L = cho_factor(pre.g_uu + torch.diag_embed(1.0 / phi_n))
+    x = torch.cholesky_solve(
+        torch.cat([pre.b_u[..., None], pre.g_uf], dim=-1), L)
+    x_u, x_uf = x[..., 0], x[..., 1:]
+    g_fu = pre.g_uf.transpose(-1, -2)
+    chi2 = pre.rr - torch.sum(pre.b_u * x_u, dim=-1)
+    z = pre.b_f - (g_fu @ x_u[..., None])[..., 0]
+    m = pre.g_ff - g_fu @ x_uf
+    ld = (pre.ld_white + torch.sum(torch.log(phi_n), dim=-1)
+          + 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                            dim=-1))
+    return chi2, z, m, ld
+
+
+def kron_gw_terms(x, m, kp: KronPhi):
+    """(corr, logdet_t) of the GW sector for every leading index of
+    ``kp.phi_gw`` (..., m2): ``X^T Phi (I + M Phi)^-1 X`` and
+    ``log|det(I + M Phi)|`` over the (P m2, P m2) system (pint_tpu
+    linalg.py:707-735).
+
+    M is block-diagonal over pulsars and Phi block-diagonal over
+    frequencies, so ``(M Phi)[(a,i),(b,j)] = m[a,i,j] B_j[a,b]`` is
+    formed entrywise, never by a dense product; one LU serves the solve
+    and the determinant."""
+    blocks = kron_gw_blocks(kp)                       # (..., m2, P, P)
+    p, m2 = x.shape
+    pm = p * m2
+    batch = blocks.shape[:-3]
+    bt = blocks.movedim(-3, -1)                       # (..., a, b, j)
+    t = (m[:, :, None, :] * bt[..., :, None, :, :]).reshape(
+        batch + (pm, pm))
+    t.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    lu, piv, _ = torch.linalg.lu_factor_ex(t)
+    del t
+    xf = x.reshape(pm)
+    y = torch.linalg.lu_solve(
+        lu, piv, xf.expand(batch + (pm,))[..., None])[..., 0]
+    y = y.reshape(batch + (p, m2))
+    phi_y = torch.einsum("...iab,...bi->...ai", blocks, y)
+    corr = torch.sum(phi_y.reshape(batch + (pm,)) * xf, dim=-1)
+    logdet = torch.sum(torch.log(torch.abs(
+        torch.diagonal(lu, dim1=-2, dim2=-1))), dim=-1)
+    return corr, logdet
+
+
+def kron_chi2_logdet_pre(pre: KronGram, kp: KronPhi):
+    """(chi2, logdet C) of the stacked array against precomputed grams
+    (pint_tpu linalg.py:667): the two-level Woodbury, with the prior
+    only ever multiplied, never inverted."""
+    chi2_d, x, m, ld_d = kron_pulsar_terms(pre, kp.phi_noise)
+    corr, ld_t = kron_gw_terms(x, m, kp)
+    return torch.sum(chi2_d) - corr, torch.sum(ld_d) + ld_t
+
+
+def kron_chi2_logdet(st: RaggedStack, kp: KronPhi):
+    """(chi2, logdet C) for the stacked-array covariance
+
+        C = blockdiag_a(diag(sigma_a^2) + U_a diag(phi_noise[a]) U_a^T)
+            + blockdiag_a(F_a) kron(orf, diag(phi_gw)) blockdiag_a(F_a)^T
+
+    over a ragged stack (pint_tpu linalg.py:738)."""
+    return kron_chi2_logdet_pre(kron_gram_precompute(st), kp)

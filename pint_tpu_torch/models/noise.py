@@ -91,6 +91,12 @@ def powerlaw(f, amp, gamma):
     return amp**2 / 12.0 / math.pi**2 * FYR ** (gamma - 3) * f ** (-gamma)
 
 
+def gwb_phi(freqs, amp, gamma, df):
+    """Per-mode GWB prior weights [s^2] (pint_tpu gw/common.py:66): the
+    power law integrated over one frequency bin."""
+    return powerlaw(freqs, amp, gamma) * df
+
+
 class NoiseComponent(Component):
     introduces_correlated_errors = False
 

@@ -58,3 +58,36 @@ def fit_errors(values, uncs, chi2_iters, ref_values, ref_uncs,
         if len(c) == len(rc) else float("inf"),
         "unc_rel": float(np.max(np.abs(uncs / ref_uncs - 1.0))),
     }
+
+
+# --------------------------------------------------------------------------
+# the GW path (68-pulsar case on the card, the ragged test array on the
+# CPU), against pint_tpu on the same inputs
+# --------------------------------------------------------------------------
+
+#: optimal statistic and its noise-marginalized draws, relative.  The
+#: port whitens through the grams (z = b_f - g_uf^T cap^-1 b_u) where
+#: the reference forms C^-1 F: the same algebra, rounded differently.
+GW_OS_REL = 1e-9
+#: the kron-structured log-likelihood, one point and the grid, relative
+#: (the reference's own kron == dense pin, tests/test_kron_hmc.py)
+GW_LNLIKE_REL = 1e-10
+#: K3 / K4 against their plain versions on the card: per entry, a
+#: multiple of the sum of the absolute values of the entry's terms
+#: (the two sum in different orders; each order is exact to
+#: ~n eps sum|terms|, and n <= 10^4 rows here)
+KERNEL_SUM_REL = 1e-13
+
+
+def vector_rel(got, ref) -> float:
+    """max |got - ref| / max |ref|: the relative error of a vector.
+
+    Per-pair cross-powers (rho) are sums of signed terms, and a pair
+    whose terms cancel has a value near zero with an absolute error of
+    ~eps sum|terms|; element-wise relative error there measures the
+    cancellation, not the port.  The vector's scale is its largest
+    element."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = float(np.max(np.abs(ref)))
+    return float(np.max(np.abs(got - ref))) / scale if scale else \
+        float(np.max(np.abs(got)))

@@ -1,4 +1,4 @@
-"""Kernels K1 and K2 on the card against their plain PyTorch versions.
+"""Kernels K1-K4 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -71,3 +71,74 @@ def test_fit_on_card_counts_launches(card):
     d = np.array([model.values[k] for k in free]) \
         - arrays["ref_fitted_values"]
     assert np.max(np.abs(d) / arrays["ref_uncertainties"]) < 1e-6
+
+
+def _stack(card, seed, n_rows, nbs, m2):
+    from pint_tpu_torch.linalg import ragged_stack
+
+    rng = np.random.default_rng(seed)
+    rs = [rng.standard_normal(n) * 1e-6 for n in n_rows]
+    sig = [1e-6 * (0.5 + rng.random(n)) for n in n_rows]
+    Us = [rng.standard_normal((n, nb)) for n, nb in zip(n_rows, nbs)]
+    Fs = [rng.standard_normal((n, m2)) for n in n_rows]
+    return ragged_stack(rs, sig, Us, Fs, card)
+
+
+def test_k3_against_plain_and_deterministic(card):
+    import dataclasses
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch import linalg as tl
+
+    # ragged rows and widths, a pulsar narrower than a tile, one wider
+    st = _stack(card, 0, [500, 37, 1200, 64], [63, 3, 40, 70], 28)
+    g1, l1 = tl.kron_gram_cuda(st)
+    g2, l2 = tl.kron_gram_cuda(st)
+    gp, lp = tl.kron_gram_plain(st)
+    ga, _ = tl.kron_gram_plain(dataclasses.replace(st, t=st.t.abs()))
+    assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
+    assert torch.equal(l1.view(torch.int64), l2.view(torch.int64))
+    assert torch.all(torch.abs(g1 - gp) <= tol.KERNEL_SUM_REL * ga)
+    assert torch.allclose(l1, lp, rtol=1e-13, atol=0)
+    assert torch.equal(g1, g1.transpose(-1, -2))
+    # the dispatcher launches K3 for CUDA tensors
+    n0 = tl.K3.launches
+    tl.kron_gram_precompute(st)
+    assert tl.K3.launches == n0 + 1
+
+
+def test_k4_against_plain_and_deterministic(card):
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.gw import os as gos
+    from pint_tpu_torch.gw.orf import pair_indices
+
+    rng = np.random.default_rng(1)
+    p, m2 = 68, 28
+    z = torch.tensor(rng.standard_normal((p, m2)), device=card)
+    M = torch.tensor(rng.standard_normal((p, m2, m2)), device=card)
+    ph = torch.tensor(rng.uniform(0.0, 1.0, m2), device=card)
+    ii, jj = (torch.tensor(x, device=card) for x in pair_indices(p))
+    n1, d1 = gos.os_pairs_cuda(z, M, ph, ii, jj)
+    n2, d2 = gos.os_pairs_cuda(z, M, ph, ii, jj)
+    npl, dpl = gos.os_pairs_plain(z, M, ph, ii, jj)
+    na, da = gos.os_pairs_plain(z.abs(), M.abs(), ph, ii, jj)
+    assert torch.equal(n1.view(torch.int64), n2.view(torch.int64))
+    assert torch.equal(d1.view(torch.int64), d2.view(torch.int64))
+    assert torch.all(torch.abs(n1 - npl) <= tol.KERNEL_SUM_REL * na)
+    assert torch.all(torch.abs(d1 - dpl) <= tol.KERNEL_SUM_REL * da)
+
+
+def test_gw_path_on_card_counts_launches(card):
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import load_pta_case
+    from pint_tpu_torch.gw.os import K4, OptimalStatistic
+    from pint_tpu_torch.linalg import K3
+
+    arrays, pairs = load_pta_case()
+    K3.launches = K4.launches = 0
+    ost = OptimalStatistic(pairs[:12], nmodes=14, device=card)
+    res = ost.compute()
+    assert K3.launches == 1 and K4.launches == 1
+    cpu = OptimalStatistic(pairs[:12], nmodes=14, device="cpu").compute()
+    assert abs(res.ahat2 / cpu.ahat2 - 1) <= tol.GW_OS_REL
+    assert tol.vector_rel(res.rho, cpu.rho) <= tol.GW_OS_REL

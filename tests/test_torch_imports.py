@@ -5,6 +5,8 @@
   scan finds no import of either in the package or in chip_smoke.py;
 - entry points default to CUDA and raise without it, unless given
   ``device="cpu"``;
+- the hand-written kernels (``csrc/*.cu``) include no Python, PyTorch
+  or JAX header: each is a plain C launcher that nvcc builds in seconds;
 - chip_smoke.py exits non-zero and prints no result without a card, and
   in a directory that holds nothing else of the repo.
 """
@@ -62,6 +64,26 @@ def test_no_forbidden_import_in_source(path):
             assert n.split(".")[0] not in FORBIDDEN, f"{path}: {n}"
 
 
+def test_gw_modules_are_scanned():
+    mods = set(_modules())
+    assert {"pint_tpu_torch.gw", "pint_tpu_torch.gw.orf",
+            "pint_tpu_torch.gw.common", "pint_tpu_torch.gw.os"} <= mods
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(REPO)) for p in (PKG / "csrc").glob("*.cu")))
+def test_kernel_sources_are_plain_c(path):
+    text = (REPO / path).read_text()
+    includes = [ln.split()[1] for ln in text.splitlines()
+                if ln.startswith("#include")]
+    for inc in includes:
+        assert not any(w in inc for w in ("torch", "Python", "pybind",
+                                          "ATen", "jax")), (path, inc)
+    assert 'extern "C"' in text
+    head = text[:600]
+    assert "Replaces" in head and "pint_tpu/" in head, path
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from pint_tpu_torch import resolve_device
     from pint_tpu_torch.convert import load_case
@@ -78,6 +100,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
             make()
     assert resolve_device("cpu").type == "cpu"
     assert model.prepare(toas, tzr, device="cpu").device.type == "cpu"
+
+
+def test_gw_entry_points_default_to_cuda(monkeypatch):
+    from pint_tpu_torch.convert import load_case
+    from pint_tpu_torch.gw.common import CommonProcess, build_pulsar_data
+    from pint_tpu_torch.gw.os import OptimalStatistic
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, model, toas, tzr = load_case()
+    pairs = [(model, toas, tzr)] * 2
+    for make in (lambda: OptimalStatistic(pairs),
+                 lambda: CommonProcess(pairs),
+                 lambda: build_pulsar_data(pairs),
+                 lambda: OptimalStatistic(pairs, device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_chip_smoke_refuses_without_card(tmp_path):
