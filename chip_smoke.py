@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K4, one nvcc per source, all started together), with its time;
+   (K1-K6, one nvcc per source, all started together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
    ``n`` and the bits of ``frac`` identical;
@@ -31,7 +31,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
    nmodes=14)``, ``compute()``, ``noise_marginalized`` over 32 draws,
    ``common_process().lnlike(-13.7, 13/3)`` and the 16 x 16
    ``lnlike_grid``, each held to the JAX answer the case carries;
-   launch counts of K1, K3 and K4 during the path (all > 0); cold and
+   launch counts of K1, K3, K4 and K5 during the path (all > 0); cold and
    warm wall time, grid points/s, peak device memory and the device
    busy share of one warm grid;
 8. kernel K3 (ragged per-pulsar weighted gram) against its plain
@@ -42,15 +42,42 @@ the closing ``{"ok": true, ...}`` line is not printed:
 9. kernel K4 (OS pair stage) against its plain version at the OS's
    shapes, in the same way; the library yardstick is the two matmuls
    Z diag(phihat) Z^T and V V^T;
-10. the ``kernels`` JSON line: per kernel its launches on its main path
-    (the fit for K1 and K2, the GW path for K3 and K4), error against
-    the plain version, time, plain-version time, bound, and the library
-    call's time where one PyTorch call computes the same function.
+10. the Bayesian GWB posterior on the same array
+    (``GWBPosterior(CommonProcess(pairs, nmodes=14))``, 138 dimensions:
+    the GWB's (log10 A, gamma) and every pulsar's TNREDAMP, TNREDGAM):
+    a production ``run_nuts`` of 16 chains, 32 warmup and 32 sampling
+    draws in chunks of 16, 12 leapfrog steps, from the generator seeded
+    0 -- launch counts of K1, K3, K5, K5b and K6 during the path (K5,
+    K5b, K6 > 0), warm chain-draws/s, gradients/s and ms per leapfrog
+    step, the busy share of one warm draw (a 1-draw chunk), peak device
+    memory, accept rate, divergences and the median log10 A against the
+    grid peak;
+11. the posterior against the JAX answers of
+    ``pint_tpu_torch/data/pta68_500_hmc.npz``: lnprob at 8 theta within
+    1e-10 relative, the gradient within 1e-10 of max|g|, -inf outside
+    the prior; a 4-chain, 4-draw ``run_nuts`` with JAX's draws injected:
+    positions within 1e-7 of the scales, lnprob and step sizes within
+    1e-9 relative, the same accept decisions;
+12. kernels K5 and K5b (per-pulsar capacity stage and its backward)
+    against their plain versions on the card at the case's grams with
+    16 chains of perturbed red-noise weights: within
+    ``tolerances.KRON_PULSAR_REL`` per output, bit-identical from run
+    to run, times beside the batched cholesky_ex + cholesky_solve +
+    matmul and its autograd backward; K6 (the transition's elementwise
+    stages) against its plain version on the same states and draws:
+    the same accept decisions, positions, momenta and step sizes within
+    4 ulp;
+13. the ``kernels`` JSON line: per kernel its launches on its main path
+    (the fit for K1 and K2, the GW path for K3 and K4, the HMC run for
+    K5, K5b and K6), error against the plain version, time,
+    plain-version time, bound, and the library call's time where one
+    PyTorch call computes the same function.
 
-Kernel times are device times (the profiler's kernel durations, summed
-per call and averaged over repeated calls after a warm-up) at the
-shapes the main path gives each kernel; the per-call time with the
-host's enqueue (CUDA events around a loop) is printed beside them.
+Kernel times are device times per call (CUDA events around 50 calls
+queued behind a sleep kernel, after a warm-up, :func:`queued_ms`) at
+the shapes the main path gives each kernel; the profiler's kernel sum
+and the per-call time with the host's enqueue (CUDA events around a
+loop) are printed beside them.
 Inputs stay in L2 between calls where they fit, as they do inside the
 path.  Long outputs go to chiprun_out/.
 """
@@ -122,16 +149,44 @@ def device_ms(fn, reps=50, warmup=5):
     return (us / reps / 1e3 if us > 0 else None), n / reps
 
 
-def kernel_ms(fn):
-    """(device ms per call, how it was measured): profiler kernel time,
-    or CUDA events around a loop of calls when the profiler sees no
-    kernel in two tries (a profiler session now and then records no
-    device activity)."""
-    for _ in range(2):
-        ms, _ = device_ms(fn)
-        if ms is not None:
-            return ms, "profiler"
-    return cuda_ms(fn), "events"
+def queued_ms(fn, reps=50, warmup=5):
+    """Device time of ``fn`` per call [ms]: CUDA events around ``reps``
+    calls that the host enqueues while a sleep kernel holds the card, so
+    the card runs them back to back whatever the host's enqueue costs
+    (a call that reads the device inside waits for the sleep, and then
+    its host time counts)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / 3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    # ~2e9 cycles/s at the H100's top clock; a longer sleep only waits
+    torch.cuda._sleep(int(2e9 * (1.5 * reps * host_s + 2e-3)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps=50):
+    """(device ms per call, how it was measured): :func:`queued_ms`
+    over ``reps`` calls (few enough that their launches fit the card's
+    launch queue, ~10^3, or the host paces them again).
+    The profiler's per-kernel sum is printed beside it: for a kernel
+    launched back to back from its ctypes library it reads low (K5:
+    1/50 and then 3/10 of the time that events, its in-path profile and
+    the enqueue loop agree on), so it is not the measure."""
+    prof_ms, _ = device_ms(fn)
+    return queued_ms(fn, reps), f"events, queued (profiler: {prof_ms!r} ms)"
 
 
 def bound_ms(n_bytes, n_flops, flops_per_s=FP64_FLOPS):
@@ -157,11 +212,12 @@ def phase_card():
 def phase_build():
     from pint_tpu_torch import _cuda
     from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
-    from pint_tpu_torch.linalg import K2, K3
+    from pint_tpu_torch.linalg import K2, K3, K5
 
     t0 = time.time()
-    libs = _cuda.build([k.source for k in (K1, K2, K3, K4)])
+    libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -356,6 +412,55 @@ def profile_breakdown(fn, wall_s, label):
     return busy, dev_us / 1e3
 
 
+def trace_breakdown(fn, wall_s, label, groups):
+    """Device time by kernel over one warm call of ``fn`` from the
+    profiler's trace (a chrome trace parsed here: the profiler's own
+    ``key_averages`` takes minutes on the ~10^5 kernels of one HMC
+    draw).  Returns (device busy share of the profiled wall, device ms,
+    each group's share of the device time); the top kernels go to
+    ``chiprun_out/{label}_profile.txt``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        wall = time.time() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{label}_trace.json")
+    t0 = time.time()
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            tot = by_name.setdefault(e["name"], [0.0, 0])
+            tot[0] += float(e["dur"])
+            tot[1] += 1
+    dev_us = sum(v[0] for v in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    with open(os.path.join(OUT_DIR, f"{label}_profile.txt"), "w") as fh:
+        fh.write(f"{label}: device {dev_us / 1e3:.3f} ms over wall "
+                 f"{wall:.3f} s; kernel, ms, launches\n")
+        for name, (us, n) in rows[:60]:
+            fh.write(f"{us / 1e3:12.3f} {n:8d}  {name}\n")
+    busy = dev_us / 1e6 / wall
+    top = [(k[:60], round(v[0] / 1e3, 3), v[1]) for k, v in rows[:8]]
+    shares = {g: sum(v[0] for k, v in by_name.items()
+                     if any(n in k.lower() for n in names))
+              / max(dev_us, 1e-30) for g, names in groups.items()}
+    log(f"profile: one warm {label}, wall {wall:.3f} s (unprofiled "
+        f"{wall_s:.3f} s), device busy {dev_us / 1e3:.3f} ms "
+        f"({busy * 100:.2f}% of wall), {sum(v[1] for v in by_name.values())}"
+        f" kernels, trace parsed in {time.time() - t0:.1f} s; top kernels "
+        f"[name, ms, launches] {json.dumps(top)}; device time by group "
+        + json.dumps(shares))
+    return busy, dev_us / 1e3, shares
+
+
 def phase_kernel_table(f, launches, k1_err, k2_err):
     """Time each kernel, its plain version and the library call at the
     fit's shapes."""
@@ -497,7 +602,7 @@ def phase_torch_rows(f, start_values):
         "8 delay/phase fold": (
             lambda: prep._phase_raw_at(values, prep.batch, prep.ctx,
                                        prep.tzr_batch, prep.tzr_ctx),
-            n * (8 * 3 + 24 * 3 + 16), 0, FP64_FLOPS),
+            n * (8 * 3 + 24 * 3 + 16), None, FP64_FLOPS),
     }
     out = {}
     for (name, (fn, nbytes, nflops, peak)), key in zip(
@@ -505,9 +610,14 @@ def phase_torch_rows(f, start_values):
         ms, kern = device_ms(fn, reps=20, warmup=3)
         if ms is None:
             ms = cuda_ms(fn, reps=20)
+        if nflops is None:
+            # the fold's operations: at least one per TOA in each of its
+            # elementwise kernels
+            nflops = n * kern
         b, by = bound_ms(nbytes, nflops, peak)
         out[name] = {"calls_per_fit": counts[key], "ms": ms,
-                     "kernels_per_call": kern, "bound_ms": b,
+                     "kernels_per_call": kern, "bytes": nbytes,
+                     "operations": nflops, "bound_ms": b,
                      "bound_by": by, "plain_ms": None, "library_ms": None}
     log(f"torch rows at the fit's shapes (N={n}, K={k}, n_par={n_par}, "
         f"Kepler depth {depth}): " + json.dumps(out))
@@ -521,9 +631,9 @@ def phase_gw(arrays, pairs):
     from pint_tpu_torch import tolerances as tol
     from pint_tpu_torch.fixedpoint import K1
     from pint_tpu_torch.gw.os import K4, OptimalStatistic
-    from pint_tpu_torch.linalg import K2, K3
+    from pint_tpu_torch.linalg import K2, K3, K5
 
-    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4}
+    kernels = {"K1": K1, "K2": K2, "K3": K3, "K4": K4, "K5": K5}
     nmodes = int(arrays["ref_nmodes"])
     amps, gams = arrays["ref_draws_log10_amp"], arrays["ref_draws_gamma"]
     la, ga = (float(x) for x in arrays["ref_lnlike_point"])
@@ -586,7 +696,7 @@ def phase_gw(arrays, pairs):
     bad = [k for k in errs if not (errs[k] <= tols[k])]
     if bad:
         raise AssertionError(f"GW path disagrees with JAX on {bad}")
-    if not all(launches[k] > 0 for k in ("K1", "K3", "K4")):
+    if not all(launches[k] > 0 for k in ("K1", "K3", "K4", "K5")):
         raise AssertionError(f"a kernel of the GW path never ran: "
                              f"{launches}")
 
@@ -753,6 +863,366 @@ def phase_k4(ost):
     return out
 
 
+#: the production run of the HMC phase (16 chains, 32 + 32 draws)
+HMC_RUN = dict(n_chains=16, num_warmup=32, num_samples=32, chunk=16,
+               num_leapfrog=12)
+
+
+def phase_hmc(pta_arrays, pairs):
+    """The HMC main path on the 68-pulsar case: posterior build and a
+    production ``run_nuts``; launch counts, warm rates, busy share, peak
+    memory, and the sanity checks (finite draws, acceptance > 0.05)."""
+    import torch
+
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.gw.hmc import K6, GWBPosterior, run_nuts
+    from pint_tpu_torch.linalg import K3, K5, K5B
+
+    kernels = {"K1": K1, "K3": K3, "K5": K5, "K5b": K5B, "K6": K6}
+    nmodes = int(pta_arrays["ref_nmodes"])
+    c, chunk, n_leap = (HMC_RUN[k] for k in ("n_chains", "chunk",
+                                             "num_leapfrog"))
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    post = GWBPosterior(CommonProcess(pairs, nmodes=nmodes, device="cuda"))
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.time()
+    res = run_nuts(post, generator=gen, seed=0, **HMC_RUN)
+    t_run = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: k.launches for n, k in kernels.items()}
+    log(f"hmc: launches during the path {launches} (ndim {post.ndim}, "
+        f"{c} chains, {HMC_RUN['num_warmup']} + {HMC_RUN['num_samples']} "
+        f"draws, {n_leap} leapfrog steps)")
+    warm = res.chunk_seconds[1:]
+    t_chunk = float(np.mean(warm))
+    rates = {
+        "build_s": t_build, "run_s": t_run,
+        "chunk_s": res.chunk_seconds,
+        "chain_draws_per_s": c * chunk / t_chunk,
+        "chain_gradients_per_s": c * chunk * n_leap / t_chunk,
+        "batched_gradients_per_s": chunk * n_leap / t_chunk,
+        "ms_per_leapfrog_step": t_chunk / (chunk * n_leap) * 1e3,
+        "peak_gib": peak / 2**30, "held_before_gib": base_mem / 2**30}
+    log("hmc: warm rates (chunks 2..) " + json.dumps(rates))
+    grid = pta_arrays["ref_grid_lnlike"]
+    ia, ig = np.unravel_index(np.argmax(grid), grid.shape)
+    peak_a = float(pta_arrays["ref_grid_log10_amp"][ia])
+    med_a = float(np.median(res.samples[..., 0]))
+    log(f"hmc: accept rate {res.accept_rate!r}, divergences "
+        f"{res.divergences}, step sizes {res.step_size.tolist()}, median "
+        f"log10 A {med_a!r} (grid peak {peak_a} at gamma "
+        f"{float(pta_arrays['ref_grid_gamma'][ig])}), median gamma "
+        f"{float(np.median(res.samples[..., 1]))!r}")
+    if not (np.all(np.isfinite(res.samples))
+            and np.all(np.isfinite(res.warmup_samples))):
+        raise AssertionError("hmc: a draw is not finite")
+    if not res.accept_rate > 0.05:
+        raise AssertionError(f"hmc: acceptance {res.accept_rate} <= 0.05")
+    if not all(launches[k] > 0 for k in ("K5", "K5b", "K6")):
+        raise AssertionError(f"a kernel of the HMC path never ran: "
+                             f"{launches}")
+    # one warm draw more (a 1-draw chunk, 12 leapfrog steps), profiled
+    # from where the run ended: a 16-draw chunk's trace (~10^5 kernels)
+    # takes the profiler longer to reduce than this script may run
+    x_last = res.samples[-1]
+    eps = float(np.median(res.step_size))
+
+    def one_draw():
+        run_nuts(post, generator=gen, x0=x_last, n_chains=c,
+                 num_warmup=0, num_samples=1, chunk=1,
+                 num_leapfrog=n_leap, step_size0=eps)
+        torch.cuda.synchronize()
+    t0 = time.time()
+    one_draw()
+    t_draw = time.time() - t0
+    busy, dev_ms, shares = trace_breakdown(
+        one_draw, t_draw, "hmc", groups={
+            "K5": ["kron_pulsar_fwd"], "K5b": ["kron_pulsar_bwd"],
+            "K6": ["nuts_"],
+            "MAGMA batched getrf": ["batched"],
+            "cuBLAS batched trsm and gemm": ["batch_trsm", "xmma_gemm"],
+            "ATen elementwise": ["at::native"]})
+    log(f"hmc: one warm draw device {dev_ms!r} ms, busy "
+        f"{busy * 100:.2f}% of its wall, {dev_ms / (n_leap + 1)!r} ms of "
+        f"device time per gradient ({n_leap} leapfrog steps and the "
+        f"start's gradient)")
+    rates.update({"busy": busy, "device_ms_per_draw": dev_ms,
+                  "shares": shares})
+    return {"launches": launches, "post": post, "rates": rates}
+
+
+def phase_hmc_parity(post, ref):
+    """The posterior at full width against the JAX answers: lnprob and
+    its gradient at 8 theta, and an injected-draw trajectory."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.gw.hmc import run_nuts
+
+    if post.param_names != [str(n) for n in ref["param_names"]] \
+            or not np.array_equal(post.bounds, ref["bounds"]) \
+            or not np.array_equal(post.scales, ref["scales"]) \
+            or not np.array_equal(post.initial_chains(4, seed=0),
+                                  ref["x0"]):
+        raise AssertionError("hmc parity: layout, bounds, scales or "
+                             "starts differ from JAX")
+    th = torch.as_tensor(ref["theta"], device="cuda")
+    lnp, g = (a.cpu().numpy() for a in post.value_and_grad(th))
+    fin = np.isfinite(ref["lnprob"])
+    lnp_rel = float(np.max(np.abs(lnp[fin] / ref["lnprob"][fin] - 1)))
+    grad_rel = max(float(np.max(np.abs(g[i] - ref["grad"][i]))
+                         / np.max(np.abs(ref["grad"][i])))
+                   for i in np.flatnonzero(fin))
+    oob = bool(np.all(lnp[~fin] == -np.inf)) and bool(np.any(~fin))
+    log(f"hmc parity: lnprob at {int(fin.sum())} theta max rel "
+        f"{lnp_rel!r} (limit {tol.GW_LNLIKE_REL:g}), gradient max |d| / "
+        f"max |g| {grad_rel!r} (limit {tol.HMC_GRAD_REL:g}), outside the "
+        f"prior -inf {oob}; lnprob {lnp.tolist()}")
+    kw = {k: int(ref[f"run_{k}"]) for k in (
+        "n_chains", "num_warmup", "num_samples", "chunk", "num_leapfrog",
+        "seed")}
+    res = run_nuts(post, draws=(ref["draw_z"], ref["draw_n_steps"],
+                                ref["draw_u"]), **kw)
+    sc = post.scales
+    errs = {
+        "samples_scales": float(np.max(np.abs(
+            (res.samples - ref["run_samples"]) / sc))),
+        "warmup_scales": float(np.max(np.abs(
+            (res.warmup_samples - ref["run_warmup_samples"]) / sc))),
+        "lnp_rel": float(np.max(np.abs(res.lnprob / ref["run_lnprob"]
+                                       - 1))),
+        "step_size_rel": float(np.max(np.abs(
+            res.step_size / ref["run_step_size"] - 1)))}
+    same = bool(np.array_equal(res.accepted, ref["run_accepted"]))
+    log(f"hmc parity: injected-draw run {kw}: largest deviations "
+        + json.dumps(errs) + f" (limits {tol.HMC_PATH_SCALES:g} in scales, "
+        f"{tol.HMC_LNP_REL:g} rel); accept decisions identical {same} "
+        f"({res.accepted.astype(int).tolist()}); accept rate "
+        f"{res.accept_rate!r} (JAX {float(ref['run_accept_rate'])!r})")
+    bad = [k for k, v in errs.items() if not v <= (
+        tol.HMC_PATH_SCALES if k.endswith("scales") else tol.HMC_LNP_REL)]
+    if not (lnp_rel <= tol.GW_LNLIKE_REL and grad_rel <= tol.HMC_GRAD_REL
+            and oob and same and not bad):
+        raise AssertionError(f"hmc parity fails: lnprob {lnp_rel}, grad "
+                             f"{grad_rel}, oob {oob}, accepts {same}, {bad}")
+    return {"lnp_rel": lnp_rel, "grad_rel": grad_rel, **errs}
+
+
+def _bits_equal(a, b):
+    import torch
+
+    return all(torch.equal(x.view(torch.int64), y.view(torch.int64))
+               for x, y in zip(a, b))
+
+
+def phase_k5(post):
+    """K5 and K5b against their plain versions on the card at the
+    case's grams, 16 chains of perturbed red-noise weights."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.linalg import (kron_pulsar_bwd_cuda,
+                                       kron_pulsar_bwd_plain,
+                                       kron_pulsar_cuda, kron_pulsar_plain)
+
+    rng = np.random.default_rng(5)
+    c = HMC_RUN["n_chains"]
+    th = np.repeat(post.center()[None], c, axis=0)
+    th[:, 2:] += rng.uniform(-0.5, 0.5, th[:, 2:].shape)
+    phi = post.phi_noise_at(torch.as_tensor(th, device="cuda")).contiguous()
+    pre = post.gram
+    a = kron_pulsar_cuda(pre, phi)
+    b = kron_pulsar_cuda(pre, phi)
+    p = kron_pulsar_plain(pre, phi)
+    cots = [torch.as_tensor(rng.standard_normal(t.shape), device="cuda")
+            for t in a[:4]]
+    ga = kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    gb = kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    gp = kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
+    torch.cuda.synchronize()
+    names = ("chi2", "x", "m", "ld")
+    errs = {n: tol.vector_rel(x.cpu().numpy(), y.cpu().numpy())
+            for n, x, y in zip(names, a[:4], p[:4])}
+    errs["grad_phi"] = tol.vector_rel(ga.cpu().numpy(), gp.cpu().numpy())
+    rerun = _bits_equal(a, b) and _bits_equal((ga,), (gb,))
+    # conditioning of the capacity matrices, diagonally equilibrated
+    cap = pre.g_uu + torch.diag_embed(1.0 / torch.clamp(phi, min=1e-30))
+    d = torch.sqrt(torch.diagonal(cap, dim1=-2, dim2=-1))
+    ev = torch.linalg.eigvalsh(cap / (d[..., :, None] * d[..., None, :]))
+    kappa = float(torch.max(ev[..., -1] / ev[..., 0]))
+    max_abs = max(float(torch.max(torch.abs(x - y)))
+                  for x, y in zip(a[:4], p[:4]))
+    log(f"k5: {c} chains x {phi.shape[1]} pulsars, nb {phi.shape[2]}, "
+        f"m2 {pre.g_ff.shape[-1]}: kernel vs plain (vector_rel) "
+        + json.dumps(errs) + f" (limit {tol.KRON_PULSAR_REL:g}); "
+        f"run-to-run bit-identical {rerun}; max kappa of the equilibrated "
+        f"capacity {kappa!r}")
+    if not (rerun and all(v <= tol.KRON_PULSAR_REL for v in errs.values())):
+        raise AssertionError("K5/K5b disagree with their plain versions")
+    b_, p_, nb = phi.shape
+    m2 = pre.g_ff.shape[-1]
+    r = 1 + m2
+    nblk = b_ * p_
+    fwd_bytes = 8 * (sum(t.numel() for t in pre) + phi.numel()
+                     + sum(t.numel() for t in a))
+    fwd_flops = nblk * (nb**3 / 3 + 2 * nb * nb * r + 2 * nb * m2 * m2
+                        + 2 * nb * m2 + 4 * nb)
+    bwd_bytes = 8 * (phi.numel() + a[4].numel() + a[5].numel()
+                     + sum(t.numel() for t in cots) + ga.numel())
+    bwd_flops = nblk * (nb**3 / 3 + 2 * nb * m2 * m2 + 4 * nb * m2
+                        + nb * nb + 12 * nb)
+    fb, fby = bound_ms(fwd_bytes, fwd_flops, FP64_TC_FLOPS)
+    bb, bby = bound_ms(bwd_bytes, bwd_flops, FP64_TC_FLOPS)
+    cap_c = cap.contiguous()
+    rhs = torch.cat([pre.b_u[..., None], pre.g_uf], dim=-1).expand(
+        b_, p_, nb, r).contiguous()
+    g_fu = pre.g_uf.transpose(-1, -2)
+
+    def lib_fwd():
+        L, _ = torch.linalg.cholesky_ex(cap_c)
+        X = torch.cholesky_solve(rhs, L)
+        return g_fu @ X[..., 1:]
+    phi_r = phi.clone().requires_grad_(True)
+    outs = [o for o in kron_pulsar_plain(pre, phi_r)[:4]]
+
+    def lib_bwd():
+        return torch.autograd.grad(outs, phi_r, cots, retain_graph=True)
+    out = {}
+    for label, kern, plain, lib, bnd, by, err in (
+            ("k5", lambda: kron_pulsar_cuda(pre, phi),
+             lambda: kron_pulsar_plain(pre, phi), lib_fwd, fb, fby,
+             max_abs),
+            ("k5b", lambda: kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots),
+             lambda: kron_pulsar_bwd_plain(phi, a[4], a[5], *cots),
+             lib_bwd, bb, bby,
+             float(torch.max(torch.abs(ga - gp))))):
+        ms, how = kernel_ms(kern)
+        plain_ms, _ = kernel_ms(plain)
+        lib_ms, _ = kernel_ms(lib)
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
+                      "timed_by": how,
+                      "per_call_with_enqueue_ms": cuda_ms(kern, reps=20)}
+        log(f"{label} at {c} chains: " + json.dumps(out[label]))
+    return out
+
+
+def _ulps(a, b):
+    """max |a - b| in units of the spacing at b (equal values, including
+    equal infinities, are 0 ulp)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    sp = torch.abs(torch.nextafter(b, torch.full_like(b, float("inf"))) - b)
+    d = torch.where(same, torch.zeros_like(a), torch.abs(a - b) / sp)
+    return float(torch.max(d))
+
+
+def phase_k6():
+    """K6 against its plain version on the card: the same states and
+    draws, two draws (one adapting), 16 chains x 138 coordinates."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.gw import hmc
+
+    c, n_leap, nd = HMC_RUN["n_chains"], HMC_RUN["num_leapfrog"], 138
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+    inv_mass = t(rng.uniform(0.16, 0.25, nd))
+    x0 = t(rng.standard_normal((c, nd)))
+    g0 = t(rng.standard_normal((c, nd)) * 30)
+    lnp0 = t(4.1e5 + rng.standard_normal(c))
+    draws = [(t(rng.standard_normal((c, nd))),
+              torch.as_tensor(rng.integers(1, n_leap + 1, c), device=dev),
+              t(rng.uniform(0, 1, c))) for _ in range(2)]
+    grads = [[(t(4.1e5 + 3 * rng.standard_normal(c)),
+               t(rng.standard_normal((c, nd)) * 30)) for _ in range(n_leap)]
+             for _ in range(2)]
+
+    def new_state():
+        return hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), inv_mass,
+                             0.05)
+
+    def draw(st, d, stages):
+        pre, post, end = stages
+        st.z.copy_(draws[d][0])
+        st.n_steps.copy_(draws[d][1])
+        st.u.copy_(draws[d][2])
+        for i in range(n_leap):
+            pre(st, i)
+            st.lnp_n.copy_(grads[d][i][0])
+            st.gn.copy_(grads[d][i][1])
+            post(st, i)
+        end(st, d == 0, False, 0.8, d)
+    kern = (hmc.nuts_leap_pre, hmc.nuts_leap_post, hmc.nuts_draw_end)
+    plain = (hmc.nuts_leap_pre_plain, hmc.nuts_leap_post_plain,
+             hmc.nuts_draw_end_plain)
+    sk, sp = new_state(), new_state()
+    worst = {}
+    same_acc = True
+    for d in range(2):
+        draw(sk, d, kern)
+        draw(sp, d, plain)
+        torch.cuda.synchronize()
+        same_acc &= bool(torch.equal(sk.accepted, sp.accepted))
+        for name in ("x", "g", "lnp", "p1", "x1", "eps", "eps_used",
+                     "log_eps", "log_eps_bar", "hbar", "acc"):
+            worst[name] = max(worst.get(name, 0.0),
+                              _ulps(getattr(sk, name), getattr(sp, name)))
+    n_acc = int(sk.accepted.sum())
+    log(f"k6: {c} chains x {nd} coordinates, 2 draws: accept decisions "
+        f"identical {same_acc} ({n_acc}/{c} accepted in the last); max "
+        f"ulps kernel vs plain " + json.dumps(worst)
+        + f" (limit {tol.K6_ULPS})")
+    if not (same_acc and all(v <= tol.K6_ULPS for v in worst.values())):
+        raise AssertionError("K6 disagrees with its plain version")
+    # one draw's elementwise work with fixed gradients, non-adapting
+    st_k, st_p = new_state(), new_state()
+
+    def run(st, stages):
+        def fn():
+            pre, post, end = stages
+            for i in range(n_leap):
+                pre(st, i)
+                post(st, i)
+            end(st, False, False, 0.8, 5)
+        return fn
+    for st in (st_k, st_p):
+        st.z.copy_(draws[1][0])
+        st.n_steps.copy_(draws[1][1])
+        st.u.copy_(draws[1][2])
+        st.gn.copy_(grads[1][0][1])
+        st.lnp_n.copy_(grads[1][0][0])
+    per = c * nd
+    nbytes = 8 * (per * (3 + 2 * n_leap + 2) + c * (n_leap + 14) + nd)
+    nflops = per * (8 * n_leap + 10)
+    b, by = bound_ms(nbytes, nflops)
+    # 25 launches a call: 10 calls keep the queue under ~10^3 launches
+    ms, how = kernel_ms(run(st_k, kern), reps=10)
+    plain_ms, _ = kernel_ms(run(st_p, plain), reps=10)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": b, "bound_by": by, "timed_by": how,
+           "max_abs_err": float(torch.max(torch.abs(sk.x - sp.x))),
+           "launches_per_draw": 2 * n_leap + 1,
+           "per_call_with_enqueue_ms": cuda_ms(run(st_k, kern), reps=20)}
+    log("k6 one draw (2 x 12 + 1 launches): " + json.dumps(out))
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -770,7 +1240,8 @@ def main():
               file=sys.stderr)
         return 2
     try:
-        from pint_tpu_torch.convert import load_case, load_pta_case
+        from pint_tpu_torch.convert import (load_case, load_hmc_reference,
+                                            load_pta_case)
     except ImportError as e:
         print(f"chip_smoke: cannot import pint_tpu_torch ({e}); run from "
               "the repo root", file=sys.stderr)
@@ -816,6 +1287,25 @@ def main():
                        "pint_tpu/gw/os.py:86", gw["launches"]["K4"], k4)]
         else:
             table = None
+    hmc = run("hmc", phase_hmc, pta_arrays, pairs)
+    if hmc is not None:
+        run("hmc parity", phase_hmc_parity, hmc["post"],
+            load_hmc_reference())
+        k5 = run("k5", phase_k5, hmc["post"])
+        k6 = run("k6", phase_k6)
+        if table is not None and k5 is not None and k6 is not None:
+            n = hmc["launches"]
+            table += [
+                gw_row("kron_pulsar_fwd", "kron_pulsar.cu",
+                       "pint_tpu/linalg.py:701", n["K5"], k5["k5"]),
+                gw_row("kron_pulsar_bwd", "kron_pulsar.cu",
+                       "pint_tpu/linalg.py:701", n["K5b"], k5["k5b"]),
+                gw_row("nuts_step", "nuts_step.cu",
+                       "pint_tpu/gw/hmc.py:365", n["K6"], k6)]
+        else:
+            table = None
+    else:
+        table = None
     leaked = [m for m in ("jax", "pint_tpu") if m in sys.modules]
     if leaked:
         failures.append(f"imports {leaked}")

@@ -33,6 +33,9 @@ B1855_EPOCHS_10K = Path(__file__).resolve().parent / "data" \
 #: the 68-pulsar, 500-TOA synthetic array of the GW path, with the JAX
 #: CPU answers (``tools/export_torch_pta_case.py``)
 PTA68_500 = Path(__file__).resolve().parent / "data" / "pta68_500.npz"
+#: the JAX CPU answers of the GWB posterior on that array
+#: (``tools/export_torch_hmc_case.py``)
+HMC_CASE = Path(__file__).resolve().parent / "data" / "pta68_500_hmc.npz"
 
 #: component class -> constructor arguments the spec may carry
 _COMPONENTS = {
@@ -171,3 +174,11 @@ def load_pta_case(path=PTA68_500):
     with np.load(path, allow_pickle=False) as z:
         arrays = {k: z[k] for k in z.files}
     return arrays, pta_case_from_arrays(arrays)
+
+
+def load_hmc_reference(path=HMC_CASE) -> dict:
+    """The arrays of a GWB-posterior reference file: layout, lnprob and
+    its gradient at stored theta, and an injected-draw run with its
+    result (``tools/export_torch_hmc_case.py``)."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}

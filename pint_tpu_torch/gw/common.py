@@ -123,6 +123,30 @@ def build_pulsar_data(pairs, *, nmodes=10, tspan_s=None,
     return out, pos, freqs, float(freqs[0]), resids
 
 
+def red_noise_layout(prepareds, nb_max, device):
+    """(mask, freqs, df) tensors locating each pulsar's intrinsic
+    red-noise (PLRedNoise) block inside its padded phi row: mask
+    (P, nb_max) bool, freqs (P, nb_max) the block's sampling
+    frequencies (1 elsewhere), df (P,) its bin width (0 where a pulsar
+    has no PLRedNoise)."""
+    k = len(prepareds)
+    mask = np.zeros((k, nb_max), dtype=bool)
+    freqs = np.ones((k, nb_max))
+    dfs = np.zeros(k)
+    for a, prep in enumerate(prepareds):
+        dims = prep.noise_dimensions()
+        if "PLRedNoise" not in dims:
+            continue
+        start, nb = dims["PLRedNoise"]
+        ctx = prep.ctx["PLRedNoise"]
+        mask[a, start:start + nb] = True
+        freqs[a, start:start + nb] = ctx["freqs"].cpu().numpy()[:nb]
+        dfs[a] = float(ctx["df"])
+    return (torch.as_tensor(mask, device=device),
+            torch.as_tensor(freqs, device=device),
+            torch.as_tensor(dfs, device=device))
+
+
 class KronData(NamedTuple):
     """The device side of an array: the ragged stack, its grams (K3,
     built once), the zero-padded noise weights and the ORF."""
@@ -166,12 +190,16 @@ class CommonProcess:
         if _prebuilt is not None:
             # (data, pos, freqs, df, kron data) of a sibling engine
             data, pos, freqs, df, kd = _prebuilt
+            resids = None
         else:
-            data, pos, freqs, df, _ = build_pulsar_data(
+            data, pos, freqs, df, resids = build_pulsar_data(
                 pairs, nmodes=nmodes, tspan_s=tspan_s,
                 marginalize_timing=marginalize_timing, device=self.device)
             kd = kron_data(data, orf_matrix(pos, orf), self.device)
         self.data = data
+        #: per-pulsar Residuals (their prepared models give the noise
+        #: weights as functions of the values); None on the _prebuilt path
+        self.resids = resids
         self.names = [d.name for d in data]
         self.n_pulsars = len(data)
         self.nmodes = int(nmodes)

@@ -28,7 +28,7 @@ import torch
 from pint_tpu_torch import resolve_device
 from pint_tpu_torch._cuda import CudaKernel
 from pint_tpu_torch.gw.common import (CommonProcess, build_pulsar_data,
-                                      kron_data)
+                                      kron_data, red_noise_layout)
 from pint_tpu_torch.gw.orf import orf_matrix, pair_indices
 from pint_tpu_torch.linalg import kron_pulsar_terms
 from pint_tpu_torch.models.noise import gwb_phi, powerlaw
@@ -180,28 +180,15 @@ class OptimalStatistic:
             orf_vals=np.asarray(self._gvals))
 
     def _red_noise_layout(self):
-        """(mask, freqs, df) tensors locating each pulsar's intrinsic
-        red-noise block inside its padded phi row."""
-        k, nb_max = self.kron_data.phi_noise.shape
-        mask = np.zeros((k, nb_max), dtype=bool)
-        freqs = np.ones((k, nb_max))
-        dfs = np.zeros(k)
-        for a, prep in enumerate(self._prepareds):
-            dims = prep.noise_dimensions()
-            if "PLRedNoise" not in dims:
-                continue
-            start, nb = dims["PLRedNoise"]
-            ctx = prep.ctx["PLRedNoise"]
-            mask[a, start:start + nb] = True
-            freqs[a, start:start + nb] = ctx["freqs"].cpu().numpy()[:nb]
-            dfs[a] = float(ctx["df"])
-        if not mask.any():
+        """(mask, freqs, df) of every pulsar's red-noise block
+        (:func:`~pint_tpu_torch.gw.common.red_noise_layout`)."""
+        mask, freqs, dfs = red_noise_layout(
+            self._prepareds, self.kron_data.phi_noise.shape[1], self.device)
+        if not bool(mask.any()):
             raise ValueError(
                 "noise_marginalized: no pulsar in the array carries a "
                 "PLRedNoise component to marginalize over")
-        return (torch.as_tensor(mask, device=self.device),
-                torch.as_tensor(freqs, device=self.device),
-                torch.as_tensor(dfs, device=self.device))
+        return mask, freqs, dfs
 
     def noise_marginalized(self, log10_amp_draws, gamma_draws):
         """OS over draws of every pulsar's intrinsic red-noise (log10 A,

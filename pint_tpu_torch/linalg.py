@@ -469,10 +469,9 @@ def ragged_stack(rs, sigmas, Us, Fs, device) -> RaggedStack:
 def _gram_split(gram, ld_white, nb_max) -> KronGram:
     """KronGram views of the padded (P, Wp, Wp) gram of [U | F | r]."""
     u, f = slice(0, nb_max), slice(nb_max, gram.shape[-1] - 1)
-    return KronGram(g_uu=gram[:, u, u], g_uf=gram[:, u, f],
-                    g_ff=gram[:, f, f], b_u=gram[:, u, -1],
-                    b_f=gram[:, f, -1], rr=gram[:, -1, -1],
-                    ld_white=ld_white)
+    return KronGram(*(t.contiguous() for t in (
+        gram[:, u, u], gram[:, u, f], gram[:, f, f], gram[:, u, -1],
+        gram[:, f, -1], gram[:, -1, -1], ld_white)))
 
 
 def kron_gram_plain(st: RaggedStack):
@@ -550,21 +549,35 @@ def kron_phi_dense(kp: KronPhi):
     return torch.block_diag(phi_n, gw)
 
 
-def kron_pulsar_terms(pre: KronGram, phi_noise):
-    """Each pulsar's own-noise Woodbury reduction, batched over pulsars
-    (one ``cholesky_ex`` of the (P, nb, nb) capacity matrices):
+# --------------------------------------------------------------------------
+# the per-pulsar capacity stage (kernels K5 / K5b and their plain versions)
+# --------------------------------------------------------------------------
 
-    chi2_a = r^T C_a^-1 r, x_a = F^T C_a^-1 r, m_a = F^T C_a^-1 F and
-    ld_a = logdet C_a, with C_a = diag(sigma^2) + U diag(phi) U^T.
+#: kernel K5 (replaces pint_tpu linalg.py:667's per-pulsar ``one``,
+#: :701-713)
+K5 = CudaKernel(
+    "kron_pulsar_fwd", "kron_pulsar.cu", "kron_pulsar_fwd_launch",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4)
+#: kernel K5b (replaces the jax.grad of the same through phi)
+K5B = CudaKernel(
+    "kron_pulsar_bwd", "kron_pulsar.cu", "kron_pulsar_bwd_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
 
-    x_a and m_a are the optimal statistic's whitened z_a and M_a."""
-    phi_n = torch.clamp(phi_noise, min=_PHI_FLOOR)
-    if pre.g_uu.shape[-1] == 0:
-        return pre.rr, pre.b_f, pre.g_ff, pre.ld_white
+#: the widest (nb, m2) K5 and K5b take: a block's shared memory
+#: (8 (nb^2 + nb (1 + m2)) bytes) must fit the H100's 227 kB
+K5_SHARED_BYTES = 232448
+
+
+def kron_pulsar_plain(pre: KronGram, phi):
+    """(chi2, x, m, ld, L, X) over phi (B, P, nb): the plain PyTorch
+    version of K5, one batched ``cholesky_ex`` of the (B, P, nb, nb)
+    capacity matrices.  L is the lower Cholesky factor, X = cap^-1
+    [b_u | g_uf] (B, P, nb, 1 + m2)."""
+    phi_n = torch.clamp(phi, min=_PHI_FLOOR)
     L = cho_factor(pre.g_uu + torch.diag_embed(1.0 / phi_n))
-    x = torch.cholesky_solve(
-        torch.cat([pre.b_u[..., None], pre.g_uf], dim=-1), L)
-    x_u, x_uf = x[..., 0], x[..., 1:]
+    rhs = torch.cat([pre.b_u[..., None], pre.g_uf], dim=-1)
+    X = torch.cholesky_solve(rhs.expand(L.shape[:-1] + rhs.shape[-1:]), L)
+    x_u, x_uf = X[..., 0], X[..., 1:]
     g_fu = pre.g_uf.transpose(-1, -2)
     chi2 = pre.rr - torch.sum(pre.b_u * x_u, dim=-1)
     z = pre.b_f - (g_fu @ x_u[..., None])[..., 0]
@@ -572,32 +585,173 @@ def kron_pulsar_terms(pre: KronGram, phi_noise):
     ld = (pre.ld_white + torch.sum(torch.log(phi_n), dim=-1)
           + 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
                             dim=-1))
-    return chi2, z, m, ld
+    return chi2, z, m, ld, L, X
+
+
+def kron_pulsar_bwd_plain(phi, L, X, gchi, gx, gm, gld):
+    """d(outputs)/d phi contracted with the output gradients: the plain
+    PyTorch version of K5b (module docstring of ``csrc/kron_pulsar.cu``
+    for the formula)."""
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
+    w = torch.linalg.solve_triangular(L, eye.expand(L.shape), upper=False)
+    d_inv = torch.sum(w * w, dim=-2)                 # diag(cap^-1)
+    x_u, x_uf = X[..., 0], X[..., 1:]
+    q = torch.sum(x_uf * gx[..., None, :], dim=-1)
+    s = torch.sum(x_uf * (x_uf @ gm.transpose(-1, -2)), dim=-1)
+    br = gchi[..., None] * (x_u * x_u) + x_u * q + s + gld[..., None] * d_inv
+    ok = phi >= _PHI_FLOOR
+    phi_c = torch.where(ok, phi, torch.ones_like(phi))
+    g = gld[..., None] / phi_c - br / (phi_c * phi_c)
+    return torch.where(ok, g, torch.zeros_like(g))
+
+
+def _check_cuda(name, tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: inputs must be on one CUDA device")
+    if any(t.dtype != torch.float64 for t in tensors):
+        raise ValueError(f"{name}: inputs must be float64")
+    return dev
+
+
+def _k5_shape(nb, m2):
+    if 8 * (nb * nb + nb * (1 + m2)) > K5_SHARED_BYTES:
+        raise ValueError(f"K5/K5b: nb = {nb}, m2 = {m2} does not fit one "
+                         f"block's shared memory ({K5_SHARED_BYTES} B)")
+
+
+def kron_pulsar_cuda(pre: KronGram, phi):
+    """Kernel K5 on CUDA tensors, phi (B, P, nb); the same outputs as
+    :func:`kron_pulsar_plain`.  Raises on what it does not take."""
+    grams = tuple(t.contiguous() for t in pre)
+    dev = _check_cuda("kron_pulsar_cuda", (phi,) + grams)
+    b, p, nb = phi.shape
+    m2 = pre.g_ff.shape[-1]
+    if pre.g_uu.shape != (p, nb, nb) or pre.g_uf.shape != (p, nb, m2):
+        raise ValueError("kron_pulsar_cuda: phi (B, P, nb) against grams "
+                         "g_uu (P, nb, nb), g_uf (P, nb, m2)")
+    _k5_shape(nb, m2)
+    phi = phi.contiguous()
+    f64 = dict(dtype=torch.float64, device=dev)
+    chi2 = torch.empty((b, p), **f64)
+    x = torch.empty((b, p, m2), **f64)
+    m = torch.empty((b, p, m2, m2), **f64)
+    ld = torch.empty((b, p), **f64)
+    L = torch.empty((b, p, nb, nb), **f64)
+    X = torch.empty((b, p, nb, 1 + m2), **f64)
+    if b * p:
+        K5.launch(dev, phi.data_ptr(), *(t.data_ptr() for t in grams),
+                  chi2.data_ptr(), x.data_ptr(), m.data_ptr(), ld.data_ptr(),
+                  L.data_ptr(), X.data_ptr(), b * p, p, nb, m2)
+    return chi2, x, m, ld, L, X
+
+
+def kron_pulsar_bwd_cuda(phi, L, X, gchi, gx, gm, gld):
+    """Kernel K5b on CUDA tensors (the shapes of
+    :func:`kron_pulsar_cuda`'s inputs and outputs)."""
+    ts = tuple(t.contiguous() for t in (phi, L, X, gchi, gx, gm, gld))
+    dev = _check_cuda("kron_pulsar_bwd_cuda", ts)
+    b, p, nb = phi.shape
+    m2 = gx.shape[-1]
+    if L.shape != (b, p, nb, nb) or X.shape != (b, p, nb, 1 + m2) \
+            or gm.shape != (b, p, m2, m2) or gchi.shape != (b, p) \
+            or gld.shape != (b, p):
+        raise ValueError("kron_pulsar_bwd_cuda: shapes do not match phi "
+                         "(B, P, nb)")
+    _k5_shape(nb, m2)
+    gphi = torch.empty_like(ts[0])
+    if b * p:
+        K5B.launch(dev, *(t.data_ptr() for t in ts), gphi.data_ptr(), b * p,
+                   nb, m2)
+    return gphi
+
+
+class _KronPulsarTerms(torch.autograd.Function):
+    """The per-pulsar stage as one differentiable operation: K5 forward
+    and K5b backward on CUDA tensors, their plain versions on CPU
+    tensors.  Only phi (B, P, nb) is differentiated."""
+
+    @staticmethod
+    def forward(ctx, phi, *grams):
+        pre = KronGram(*grams)
+        if phi.device.type == "cuda":
+            chi2, x, m, ld, L, X = kron_pulsar_cuda(pre, phi)
+        elif phi.device.type == "cpu":
+            chi2, x, m, ld, L, X = kron_pulsar_plain(pre, phi)
+        else:
+            raise ValueError(f"kron_pulsar_terms: no version for "
+                             f"{phi.device}")
+        ctx.save_for_backward(phi, L, X)
+        return chi2, x, m, ld
+
+    @staticmethod
+    def backward(ctx, gchi, gx, gm, gld):
+        phi, L, X = ctx.saved_tensors
+        b, p, nb = phi.shape
+        m2 = X.shape[-1] - 1
+
+        def zero(g, shape):
+            return g if g is not None else phi.new_zeros(shape)
+        args = (phi, L, X, zero(gchi, (b, p)), zero(gx, (b, p, m2)),
+                zero(gm, (b, p, m2, m2)), zero(gld, (b, p)))
+        if phi.device.type == "cuda":
+            gphi = kron_pulsar_bwd_cuda(*args)
+        else:
+            gphi = kron_pulsar_bwd_plain(*args)
+        return (gphi,) + (None,) * len(KronGram._fields)
+
+
+def kron_pulsar_terms(pre: KronGram, phi_noise):
+    """Each pulsar's own-noise Woodbury reduction:
+
+    chi2_a = r^T C_a^-1 r, x_a = F^T C_a^-1 r, m_a = F^T C_a^-1 F and
+    ld_a = logdet C_a, with C_a = diag(sigma^2) + U diag(phi) U^T.
+
+    ``phi_noise`` is (..., P, nb) with any leading chain dimensions; the
+    grams (P, ...) are shared by every chain.  The outputs carry the
+    same leading dimensions.  Differentiable in ``phi_noise`` only
+    (kernel K5 forward, K5b backward on CUDA; their plain versions on
+    the CPU); a gram that requires grad raises.  x_a and m_a are the
+    optimal statistic's whitened z_a and M_a."""
+    if any(t.requires_grad for t in pre):
+        raise ValueError("kron_pulsar_terms differentiates phi_noise only; "
+                         "a gram requires grad")
+    lead = phi_noise.shape[:-2]
+    p, nb = phi_noise.shape[-2:]
+    m2 = pre.g_ff.shape[-1]
+    if nb == 0:
+        return tuple(t.expand(lead + t.shape) for t in
+                     (pre.rr, pre.b_f, pre.g_ff, pre.ld_white))
+    phi = phi_noise.reshape((-1, p, nb))
+    chi2, x, m, ld = _KronPulsarTerms.apply(phi, *pre)
+    return (chi2.reshape(lead + (p,)), x.reshape(lead + (p, m2)),
+            m.reshape(lead + (p, m2, m2)), ld.reshape(lead + (p,)))
 
 
 def kron_gw_terms(x, m, kp: KronPhi):
-    """(corr, logdet_t) of the GW sector for every leading index of
-    ``kp.phi_gw`` (..., m2): ``X^T Phi (I + M Phi)^-1 X`` and
-    ``log|det(I + M Phi)|`` over the (P m2, P m2) system (pint_tpu
-    linalg.py:707-735).
+    """(corr, logdet_t) of the GW sector for every leading index:
+    ``X^T Phi (I + M Phi)^-1 X`` and ``log|det(I + M Phi)|`` over the
+    (P m2, P m2) system (pint_tpu linalg.py:707-735).  x (..., P, m2),
+    m (..., P, m2, m2) and ``kp.phi_gw`` (..., m2) broadcast over their
+    leading dimensions (chains, grid points).
 
     M is block-diagonal over pulsars and Phi block-diagonal over
     frequencies, so ``(M Phi)[(a,i),(b,j)] = m[a,i,j] B_j[a,b]`` is
     formed entrywise, never by a dense product; one LU serves the solve
-    and the determinant."""
+    and the determinant.  Differentiable through autograd (the LU's
+    gradient is PyTorch's)."""
     blocks = kron_gw_blocks(kp)                       # (..., m2, P, P)
-    p, m2 = x.shape
+    p, m2 = x.shape[-2:]
     pm = p * m2
-    batch = blocks.shape[:-3]
+    batch = torch.broadcast_shapes(x.shape[:-2], m.shape[:-3],
+                                   blocks.shape[:-3])
     bt = blocks.movedim(-3, -1)                       # (..., a, b, j)
-    t = (m[:, :, None, :] * bt[..., :, None, :, :]).reshape(
-        batch + (pm, pm))
+    t = (m.unsqueeze(-2) * bt.unsqueeze(-3)).reshape(batch + (pm, pm))
     t.diagonal(dim1=-2, dim2=-1).add_(1.0)
     lu, piv, _ = torch.linalg.lu_factor_ex(t)
     del t
-    xf = x.reshape(pm)
-    y = torch.linalg.lu_solve(
-        lu, piv, xf.expand(batch + (pm,))[..., None])[..., 0]
+    xf = x.expand(batch + (p, m2)).reshape(batch + (pm,))
+    y = torch.linalg.lu_solve(lu, piv, xf[..., None])[..., 0]
     y = y.reshape(batch + (p, m2))
     phi_y = torch.einsum("...iab,...bi->...ai", blocks, y)
     corr = torch.sum(phi_y.reshape(batch + (pm,)) * xf, dim=-1)
@@ -612,7 +766,8 @@ def kron_chi2_logdet_pre(pre: KronGram, kp: KronPhi):
     only ever multiplied, never inverted."""
     chi2_d, x, m, ld_d = kron_pulsar_terms(pre, kp.phi_noise)
     corr, ld_t = kron_gw_terms(x, m, kp)
-    return torch.sum(chi2_d) - corr, torch.sum(ld_d) + ld_t
+    return (torch.sum(chi2_d, dim=-1) - corr,
+            torch.sum(ld_d, dim=-1) + ld_t)
 
 
 def kron_chi2_logdet(st: RaggedStack, kp: KronPhi):

