@@ -38,7 +38,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
    version on the card, at the case's shapes and at 68 pulsars x 10^4
    rows x width 92: within 1e-13 of each entry's sum of |terms|, and
    bit-identical from run to run; its time beside the padded
-   ``torch.einsum`` and the bound;
+   ``torch.einsum`` and the bound, its kernels per call, ptxas's
+   registers and spills (a spill fails the phase) and blocks per SM;
 9. kernel K4 (OS pair stage) against its plain version at the OS's
    shapes, in the same way; the library yardstick is the two matmuls
    Z diag(phihat) Z^T and V V^T;
@@ -63,8 +64,10 @@ the closing ``{"ok": true, ...}`` line is not printed:
     16 chains of perturbed red-noise weights: within
     ``tolerances.KRON_PULSAR_REL`` per output, bit-identical from run
     to run, times beside the batched cholesky_ex + cholesky_solve +
-    matmul and its autograd backward; K6 (the transition's elementwise
-    stages) against its plain version on the same states and draws:
+    matmul and its autograd backward, K5's kernels per call, ptxas
+    report (a spill fails the phase), blocks per SM and waves; K6 (the
+    transition's elementwise stages) against its plain version on the
+    same states and draws:
     the same accept decisions, positions, momenta and step sizes within
     4 ulp;
 13. the ``kernels`` JSON line: per kernel its launches on its main path
@@ -771,6 +774,24 @@ def synthetic_stack(n_psr, n_rows, nb, m2, seed=0):
                        nb_host=(nb,) * n_psr, m2=m2)
 
 
+def build_report(kernel, names, occupancy, *occ_args):
+    """ptxas's registers and spills for the kernels of ``kernel``'s
+    source whose names contain one of ``names``, and the blocks per SM
+    the occupancy query gives; raises if ptxas reported nothing or a
+    spill."""
+    from pint_tpu_torch import _cuda
+
+    rep = _cuda.ptxas_report(_cuda.build_log(kernel.source) or "")
+    ptx = {n: v for n, v in rep.items() if any(k in n for k in names)}
+    if len(ptx) != len(names):
+        raise AssertionError(f"no ptxas report for {names} in {kernel.source}")
+    spills = {n: v for n, v in ptx.items()
+              if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
+    if spills:
+        raise AssertionError(f"ptxas spills in {kernel.source}: {spills}")
+    return {"ptxas": ptx, "blocks_per_sm": kernel.call(occupancy, *occ_args)}
+
+
 def phase_k3(st_case):
     """K3 against its plain version on the card at the case's shapes and
     at 10^4 rows per pulsar; times beside the padded einsum."""
@@ -778,7 +799,8 @@ def phase_k3(st_case):
 
     import torch
 
-    from pint_tpu_torch.linalg import kron_gram_cuda, kron_gram_plain
+    from pint_tpu_torch.linalg import (K3, k3_row_splits, kron_gram_cuda,
+                                       kron_gram_plain)
 
     out = {}
     for label, st in (("case", st_case),
@@ -813,7 +835,15 @@ def phase_k3(st_case):
                       "bound_ms": b, "bound_by": by, "max_abs_err": err,
                       "timed_by": how, "bytes": nbytes, "flops": nflops,
                       "per_call_with_enqueue_ms":
-                          cuda_ms(lambda: kron_gram_cuda(st), reps=20)}
+                          cuda_ms(lambda: kron_gram_cuda(st), reps=20),
+                      # the launcher issues the partial and reduce passes
+                      "kernels_per_call": 2,
+                      "pass1_blocks": sum(len(k3_row_splits(n))
+                                          for n in n_rows),
+                      **build_report(K3, ("kron_gram_partial",
+                                          "kron_gram_reduce"),
+                                     "kron_gram_occupancy", st.nb_max,
+                                     st.m2)}
         log(f"k3 {label}: P={st.n_psr} rows {n_rows[0]}..{max(n_rows)} "
             f"widths {min(widths)}..{max(widths)}: " + json.dumps(out[label]))
     return out
@@ -1030,7 +1060,7 @@ def phase_k5(post):
     import torch
 
     from pint_tpu_torch import tolerances as tol
-    from pint_tpu_torch.linalg import (kron_pulsar_bwd_cuda,
+    from pint_tpu_torch.linalg import (K5, kron_pulsar_bwd_cuda,
                                        kron_pulsar_bwd_plain,
                                        kron_pulsar_cuda, kron_pulsar_plain)
 
@@ -1111,7 +1141,16 @@ def phase_k5(post):
         out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
                       "timed_by": how,
-                      "per_call_with_enqueue_ms": cuda_ms(kern, reps=20)}
+                      "per_call_with_enqueue_ms": cuda_ms(kern, reps=20),
+                      "kernels_per_call": 1,
+                      "blocks": nblk}
+        if label == "k5":
+            out[label].update(build_report(
+                K5, ("kron_pulsar_fwd",), "kron_pulsar_fwd_occupancy", nb,
+                m2))
+            out[label]["waves"] = nblk / (out[label]["blocks_per_sm"]
+                                          * torch.cuda.get_device_properties(
+                                              0).multi_processor_count)
         log(f"{label} at {c} chains: " + json.dumps(out[label]))
     return out
 

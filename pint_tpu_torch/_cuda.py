@@ -11,7 +11,9 @@ repo's ``.gitignore`` lists ``build/``), named by a hash of their
 source, so an edited kernel is rebuilt and never served stale.
 ``-fmad=false`` keeps every multiply and add separately rounded: the
 kernels must round exactly as their plain PyTorch versions do on the
-CPU.
+CPU (it does not reach the fp64 tensor-core MMA of K3 and K5).
+``-Xptxas=-v`` makes ptxas report each kernel's registers and spills;
+the compiler's output is kept beside the library (:func:`build_log`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +32,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "pint_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler",
+              "-fPIC")
 
 
 def nvcc_path() -> str:
@@ -74,9 +78,39 @@ def build(sources) -> dict:
         if p.returncode != 0:
             errors.append(f"nvcc failed on {s}:\n{log}")
         else:
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
     if errors:
         raise RuntimeError("\n".join(errors))
+    return out
+
+
+def build_log(source: str):
+    """The compiler's output (ptxas's register and spill report) from
+    the build of ``source``, or None if it was not built here."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else None
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "stack"}} from ``nvcc -Xptxas=-v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
     return out
 
 
@@ -108,6 +142,16 @@ class CudaKernel:
                 self._lib = lib  # keep the library mapped
                 self._fn = fn
         return self._fn
+
+    def call(self, symbol, *args) -> int:
+        """Call another ``extern "C"`` function of the kernel's library
+        that takes int64 arguments and returns an int (an occupancy
+        query, say)."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes = [ctypes.c_int64] * len(args)
+        fn.restype = ctypes.c_int
+        return fn(*args)
 
     def launch(self, device: torch.device, *args):
         """Enqueue the kernel on ``device``'s current stream."""

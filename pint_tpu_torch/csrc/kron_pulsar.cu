@@ -9,17 +9,16 @@
 // g_uu (nb, nb), g_uf (nb, m2), g_ff (m2, m2), b_u (nb), b_f (m2), rr,
 // ld_white shared by every chain and the chain's weights phi (nb):
 //
-//   cap  = g_uu + diag(1 / max(phi, 1e-30))
-//   L    = chol(cap)                      (right-looking, in shared)
-//   X    = cap^-1 [b_u | g_uf]            (forward, back substitution)
-//   chi2 = rr - b_u . x_u
-//   x_a  = b_f - g_uf^T x_u
-//   M_a  = g_ff - g_uf^T X_uf
+//   cap  = g_uu + diag(1 / max(phi, 1e-30)),   L = chol(cap)
+//   Z    = L^-1 [b_u | g_uf]                   (z_u | Z_uf)
+//   G    = Z^T Z:   chi2 = rr - G_00,  x_a = b_f - G_0f,  M_a = g_ff - G_ff
+//   X    = L^-T Z = cap^-1 [b_u | g_uf]        (written for K5b)
 //   ld_a = ld_white + sum log max(phi, 1e-30) + 2 sum log L_kk
 //
-// and writes L and X for the backward.  A pivot that is not > 0 (or
-// NaN) makes it NaN, so every output of the block is NaN, as
-// jax.scipy.linalg.cho_factor's is.
+// (G holds the same sums as b_u^T x_u, g_uf^T x_u and g_uf^T X_uf: the
+// solve's first half is shared, and M_a comes out exactly symmetric.)
+// A pivot that is not > 0 (or NaN) makes every output of the block
+// NaN, L included, as cho_factor does.
 //
 // K5b, backward, only through phi.  With dcap = -diag(dphi / phi^2),
 // one block per (chain, pulsar) forms W = L^-1 in shared memory and
@@ -31,137 +30,413 @@
 // with (cap^-1)_kk = sum_{i >= k} W_ik^2; a weight below the 1e-30
 // floor gets 0, as the clamp gives.
 //
-// Order: every sum runs in ascending index order in one thread, and
-// each shared entry is updated by one thread per elimination step, so
-// both kernels are bit-identical from run to run.  -fmad=false keeps
-// every product and sum separately rounded.
-//
 // Bound on an H100 SXM: at 16 chains x 68 pulsars, nb = 63, m2 = 28,
-// K5 reads the grams once (3.6 MB) and phi (0.55 MB) and writes
-// L and X (50 MB) and the outputs (7 MB): ~18 us of bytes.  Its
-// operations, per block nb^3/3 (Cholesky) + 2 nb^2 (1 + m2) (solves)
-// + 2 nb m2^2 (M_a), ~0.4 MFLOP, 0.4 GFLOP in all, ~6 us on the fp64
-// tensor cores: bytes bound it.  The design is the simple one: a
-// 256-thread block walks nb elimination steps with a barrier each,
-// so it is latency-bound (~nb * 3 barriers), not bandwidth-bound.
-// Shared memory: 8 (nb^2 + nb (1 + m2)) bytes, 46 kB at nb = 63 -- the
-// launcher raises the dynamic limit above 48 kB for wider pulsars.
+// K5 reads the grams (3.6 MB) and phi (0.55 MB) and writes L and X
+// (50 MB) and the outputs (7 MB): ~18 us of bytes.  Its operations,
+// ~0.4 MFLOP a block and 0.4 GFLOP in all, are ~6 us on the fp64 tensor
+// cores.  So bytes bound it, and a block's chain of dependent steps is
+// what a design has to shorten.
+//
+// K5's design.  The capacity is padded to NBP = roundup8(nb) with the
+// identity and the 1 + m2 right-hand sides to RP = roundup16(1 + m2)
+// with zeros; both sit in shared memory (staged by cp.async) with row
+// strides = 4 mod 8 doubles, so the fragment loads are free of bank
+// conflicts.  The 8 x 8 tiles run on mma.sync m8n8k4 f64, G on m16n8k8
+// (m8n8k4 peaks at half the fp64 tensor rate on an H100, see
+// kron_gram.cu; K5's steps are latency-bound and 8 x 8 tiles match its
+// panel).
+// - Blocked right-looking Cholesky, panel 8.  One warp factors the
+//   8 x 8 diagonal block in registers (shuffles, one reciprocal square
+//   root per column) and inverts it; the inverse goes to an unused upper
+//   tile of A.  The panel below it is then A_21 L_11^-T, the forward
+//   solve's block row L_11^-1 Y_1, and the trailing update (lower tiles
+//   of A_22 -= L_21 L_21^T, and Y_2 -= L_21 Z_1) are tiles on the MMA,
+//   one warp per tile.  The warp that updates the next diagonal tile
+//   factors it at once (look-ahead): 2 barriers a panel, ~nb/4 in the
+//   factorization in place of ~3 nb.
+// - G = Z^T Z: its upper 16 x 8 blocks on the MMA, straight from shared
+//   memory; the log sums over one warp with a fixed-order shuffle tree.
+// - Back substitution L^T X = Z by block rows from the last, with the
+//   diagonal blocks' inverses and the off-diagonal updates on the MMA:
+//   1 barrier a panel.
+// Indices are 32-bit with 2-D thread maps (warp x lane, tile row x tile
+// column); no 64-bit division anywhere.  Every shared entry has one
+// owner per step and every sum a fixed order, so both kernels are
+// bit-identical from run to run.  -fmad=false keeps K5b's and K5's
+// scalar products and sums separately rounded; it does not reach the
+// MMA, which rounds its own 4- and 8-term sums.  Occupancy: at nb = 63
+// a block holds 53 kB of shared memory and 80 registers a thread, so 3
+// blocks fit on an SM (the registers bind; capping them at 64 for a
+// fourth block spills and measured slower), and the 1088 blocks of
+// 16 chains x 68 pulsars take 2.75 waves on 132 SMs.  The launcher
+// raises the dynamic limit above 48 kB.  K5b keeps its first design: a
+// 256-thread block, one elimination step per barrier.
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #define THREADS 256
+#define WARPS 8
+#define LDL 12  // row stride of a diagonal block's inverse
 #define PHI_FLOOR 1e-30
+#define FULL 0xffffffffu
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
 
 __device__ __forceinline__ double floored(double v) {
   // max(v, floor) that keeps NaN, as torch.clamp does
   return v < PHI_FLOOR ? PHI_FLOOR : v;
 }
 
-__global__ void kron_pulsar_fwd_kernel(
+__device__ __forceinline__ void dmma(double& d0, double& d1, double a,
+                                     double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(d0), "+d"(d1)
+      : "d"(a), "d"(b));
+}
+
+__host__ __device__ __forceinline__ int round8(int x) { return (x + 7) & ~7; }
+__host__ __device__ __forceinline__ int round16(int x) {
+  return (x + 15) & ~15;
+}
+
+// shared doubles of one K5 block: the capacity, the right-hand sides and,
+// for a capacity of fewer than 3 block rows, the diagonal blocks'
+// inverses (wider ones keep them in A's unused upper tiles)
+__host__ __device__ __forceinline__ int fwd_smem_doubles(int nb, int m2) {
+  const int nbp = round8(nb), rp = round16(m2 + 1), nt = nbp >> 3;
+  return nbp * (nbp + 4) + nbp * (rp + 4) + (nt < 3 ? nt * 8 * LDL : 0);
+}
+
+// where diagonal block kd's inverse lives (row stride: lda, or LDL in
+// the separate area): A's upper tile (kd, kd + 1), the last block's in
+// tile (0, nt - 1)
+__device__ __forceinline__ double* li_at(double* A, double* Lx, int lda,
+                                         int nt, int kd) {
+  if (nt < 3) return Lx + kd * 8 * LDL;
+  return kd < nt - 1 ? A + kd * 8 * lda + (kd + 1) * 8 : A + (nt - 1) * 8;
+}
+
+__device__ __forceinline__ void mma16(double (&d)[4], double a0, double a1,
+                                      double a2, double a3, double b0,
+                                      double b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
+}
+
+// One warp: factor the 8 x 8 diagonal block kd of A in place (lower, its
+// diagonal the square roots) and write its inverse to li (row stride
+// lds).  Lane l holds entries (l >> 3, l & 7) and (4 + (l >> 3), l & 7).
+__device__ void diag_factor(double* A, double* li, int lds, int lda, int kd,
+                            int lane, int* bad) {
+  const int p0 = kd << 3;
+  const int i0 = lane >> 3, m = lane & 7, i1 = i0 + 4;
+  double v0 = A[(p0 + i0) * lda + p0 + m];
+  double v1 = A[(p0 + i1) * lda + p0 + m];
+  double rmine = 0.0;  // lane j < 8: 1 / L_jj
+  bool fail = false;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // entry (i, j) sits in lane (i & 3) * 8 + j, v0 for i < 4, else v1
+    const double c0 = __shfl_sync(FULL, v0, i0 * 8 + j);
+    const double c1 = __shfl_sync(FULL, v1, i0 * 8 + j);
+    const double e0 = __shfl_sync(FULL, v0, (m & 3) * 8 + j);
+    const double e1 = __shfl_sync(FULL, v1, (m & 3) * 8 + j);
+    const double f0 = __shfl_sync(FULL, v0, (j & 3) * 8 + j);
+    const double f1 = __shfl_sync(FULL, v1, (j & 3) * 8 + j);
+    const double d = j < 4 ? f0 : f1;
+    const double cm = m < 4 ? e0 : e1;
+    fail = fail || !(d > 0.0);
+    const double r =
+        d > 0.0 ? rsqrt(d) : __longlong_as_double(0x7ff8000000000000LL);
+    const double s = d * r;
+    const double l0 = c0 * r, l1 = c1 * r, lm = cm * r;
+    if (m == j) {
+      if (i0 == j) v0 = s;
+      else if (i0 > j) v0 = l0;
+      if (i1 == j) v1 = s;
+      else if (i1 > j) v1 = l1;
+    } else if (m > j) {
+      if (m <= i0) v0 = v0 - l0 * lm;
+      if (m <= i1) v1 = v1 - l1 * lm;
+    }
+    if (lane == j) rmine = r;
+  }
+  if (m <= i0) A[(p0 + i0) * lda + p0 + m] = v0;
+  if (m <= i1) A[(p0 + i1) * lda + p0 + m] = v1;
+  if (fail && lane == 0) *bad = 1;
+  __syncwarp();
+  // L_11^-1, lower: lane c < 8 forms column c by forward substitution
+  const int c = lane & 7;
+  double col[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const double ri = __shfl_sync(FULL, rmine, i);
+    double acc = i == c ? 1.0 : 0.0;
+#pragma unroll
+    for (int q = 0; q < i; ++q)
+      if (q >= c) acc = acc - A[(p0 + i) * lda + p0 + q] * col[q];
+    col[i] = i < c ? 0.0 : acc * ri;
+  }
+  if (lane < 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) li[i * lds + c] = col[i];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) kron_pulsar_fwd_kernel(
     const double* __restrict__ phi, const double* __restrict__ g_uu,
     const double* __restrict__ g_uf, const double* __restrict__ g_ff,
     const double* __restrict__ b_u, const double* __restrict__ b_f,
     const double* __restrict__ rr, const double* __restrict__ ld_white,
     double* __restrict__ chi2, double* __restrict__ x_out,
     double* __restrict__ m_out, double* __restrict__ ld_out,
-    double* __restrict__ L_out, double* __restrict__ X_out, int64_t n_psr,
-    int64_t nb, int64_t m2) {
+    double* __restrict__ L_out, double* __restrict__ X_out, int n_psr,
+    int nb, int m2) {
   extern __shared__ double smem[];
-  const int64_t blk = blockIdx.x;  // chain * n_psr + pulsar
-  const int64_t p = blk % n_psr;
-  const int64_t R = 1 + m2;
-  double* A = smem;            // (nb, nb) capacity, then L (lower)
-  double* Y = smem + nb * nb;  // (nb, R) right-hand sides, then X
-  const double* ph = phi + blk * nb;
-  const double* G = g_uu + p * nb * nb;
-  const double* GF = g_uf + p * nb * m2;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  __shared__ int bad;
+  const int R = m2 + 1;
+  const int nbp = round8(nb), rp = round16(R);
+  const int nt = nbp >> 3, rt = rp >> 3;
+  const int lda = nbp + 4, ldy = rp + 4;
+  const int lds = nt < 3 ? LDL : lda;
+  double* A = smem;             // (nbp, lda): capacity, then L (lower)
+  double* Y = A + nbp * lda;    // (nbp, ldy): [b_u | g_uf], then Z, then X
+  double* Lx = Y + nbp * ldy;   // (nt, 8, LDL) if nt < 3: see li_at
+  const int blk = blockIdx.x;   // chain * n_psr + pulsar
+  const int p = blk % n_psr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lr = lane >> 2, lc = lane & 3;
+  const double* ph = phi + (size_t)blk * nb;
+  const double* G = g_uu + (size_t)p * nb * nb;
+  const double* GF = g_uf + (size_t)p * nb * m2;
+  const double* BU = b_u + (size_t)p * nb;
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
 
-  for (int64_t idx = tid; idx < nb * nb; idx += nt) {
-    const int64_t i = idx / nb, j = idx % nb;
-    double v = G[idx];
-    if (i == j) v = v + 1.0 / floored(ph[i]);
-    A[idx] = v;
-  }
-  for (int64_t idx = tid; idx < nb * R; idx += nt) {
-    const int64_t i = idx / R, c = idx % R;
-    Y[idx] = c == 0 ? b_u[p * nb + i] : GF[i * m2 + c - 1];
-  }
-  // Cholesky, right-looking: column j, then the trailing update
-  for (int64_t j = 0; j < nb; ++j) {
-    __syncthreads();
-    if (tid == 0) {
-      const double d = A[j * nb + j];
-      A[j * nb + j] =
-          d > 0.0 ? sqrt(d) : __longlong_as_double(0x7ff8000000000000LL);
+  if (tid == 0) bad = 0;
+  // g_uu and [b_u | g_uf] by cp.async, the pads written directly; the
+  // diagonal's 1 / phi is formed while the copies fly, then added
+  for (int i = warp; i < nbp; i += WARPS) {
+    for (int j = lane; j < nbp; j += 32) {
+      if (i < nb && j < nb) cp_async8(A + i * lda + j, G + i * nb + j);
+      else A[i * lda + j] = i == j ? 1.0 : 0.0;  // the identity pad
     }
-    __syncthreads();
-    const double s = A[j * nb + j];
-    for (int64_t i = j + 1 + tid; i < nb; i += nt) A[i * nb + j] /= s;
-    __syncthreads();
-    const int64_t n = nb - j - 1;
-    for (int64_t idx = tid; idx < n * n; idx += nt) {
-      const int64_t i = j + 1 + idx / n, k = j + 1 + idx % n;
-      if (k <= i) A[i * nb + k] -= A[i * nb + j] * A[k * nb + j];
+    for (int c = lane; c < rp; c += 32) {
+      if (i < nb && c < R)
+        cp_async8(Y + i * ldy + c, c == 0 ? BU + i : GF + i * m2 + c - 1);
+      else Y[i * ldy + c] = 0.0;
     }
   }
-  // forward substitution L Y = B, row by row
-  for (int64_t i = 0; i < nb; ++i) {
+  asm volatile("cp.async.commit_group;\n" ::);
+  // nb < THREADS: any nb whose block fits shared memory (nb <= 144)
+  const double dinv = tid < nb ? 1.0 / floored(ph[tid]) : 0.0;
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  if (tid < nb) A[tid * lda + tid] = A[tid * lda + tid] + dinv;
+  __syncthreads();
+  if (warp == 0)
+    diag_factor(A, li_at(A, Lx, lda, nt, 0), lds, lda, 0, lane, &bad);
+  __syncthreads();
+
+  for (int k = 0; k < nt; ++k) {
+    const int p0 = k << 3;
+    const double* lk = li_at(A, Lx, lda, nt, k);
+    // the panel below the diagonal block, A_21 L_11^-T, and the forward
+    // solve's block row Z_k = L_11^-1 Y_k, one tile per task
+    const int np = nt - 1 - k;
+    for (int t = warp; t < np + rt; t += WARPS) {
+      double d0 = 0.0, d1 = 0.0;
+      if (t < np) {
+        const int r0 = (k + 1 + t) << 3;
+#pragma unroll
+        for (int kb = 0; kb < 8; kb += 4)
+          dmma(d0, d1, A[(r0 + lr) * lda + p0 + kb + lc],
+               lk[lr * lds + kb + lc]);
+        A[(r0 + lr) * lda + p0 + 2 * lc] = d0;
+        A[(r0 + lr) * lda + p0 + 2 * lc + 1] = d1;
+      } else {
+        const int c0 = (t - np) << 3;
+#pragma unroll
+        for (int kb = 0; kb < 8; kb += 4)
+          dmma(d0, d1, lk[lr * lds + kb + lc],
+               Y[(p0 + kb + lc) * ldy + c0 + lr]);
+        Y[(p0 + lr) * ldy + c0 + 2 * lc] = d0;
+        Y[(p0 + lr) * ldy + c0 + 2 * lc + 1] = d1;
+      }
+    }
     __syncthreads();
-    const double d = A[i * nb + i];
-    for (int64_t c = tid; c < R; c += nt) Y[i * R + c] /= d;
+    if (np == 0) break;
+    // trailing update: lower tiles of A_22 -= L_21 L_21^T and
+    // Y_2 -= L_21 Z_k; warp 0 takes the next diagonal tile alone and
+    // factors it straight after
+    const int nsy = np * (np + 1) / 2;
+    if (warp == 0) {
+      const int r0 = (k + 1) << 3;
+      double d0 = A[(r0 + lr) * lda + r0 + 2 * lc];
+      double d1 = A[(r0 + lr) * lda + r0 + 2 * lc + 1];
+#pragma unroll
+      for (int kb = 0; kb < 8; kb += 4) {
+        const double b = A[(r0 + lr) * lda + p0 + kb + lc];
+        dmma(d0, d1, -b, b);
+      }
+      A[(r0 + lr) * lda + r0 + 2 * lc] = d0;
+      A[(r0 + lr) * lda + r0 + 2 * lc + 1] = d1;
+      __syncwarp();
+      diag_factor(A, li_at(A, Lx, lda, nt, k + 1), lds, lda, k + 1, lane,
+                  &bad);
+    } else {
+      for (int t = warp - 1; t < nsy - 1 + np * rt; t += WARPS - 1) {
+        double d0, d1;
+        if (t < nsy - 1) {
+          // lower tile (ti, tj) of the trailing block, row-major, past
+          // its first (diagonal) tile
+          int u = t + 1, i = 0;
+          while (u > i) {
+            u -= i + 1;
+            ++i;
+          }
+          const int ri = (k + 1 + i) << 3, cj = (k + 1 + u) << 3;
+          d0 = A[(ri + lr) * lda + cj + 2 * lc];
+          d1 = A[(ri + lr) * lda + cj + 2 * lc + 1];
+#pragma unroll
+          for (int kb = 0; kb < 8; kb += 4)
+            dmma(d0, d1, -A[(ri + lr) * lda + p0 + kb + lc],
+                 A[(cj + lr) * lda + p0 + kb + lc]);
+          A[(ri + lr) * lda + cj + 2 * lc] = d0;
+          A[(ri + lr) * lda + cj + 2 * lc + 1] = d1;
+        } else {
+          const int u = t - (nsy - 1);
+          const int i = u / rt;
+          const int ri = (k + 1 + i) << 3, c0 = (u - i * rt) << 3;
+          d0 = Y[(ri + lr) * ldy + c0 + 2 * lc];
+          d1 = Y[(ri + lr) * ldy + c0 + 2 * lc + 1];
+#pragma unroll
+          for (int kb = 0; kb < 8; kb += 4)
+            dmma(d0, d1, -A[(ri + lr) * lda + p0 + kb + lc],
+                 Y[(p0 + kb + lc) * ldy + c0 + lr]);
+          Y[(ri + lr) * ldy + c0 + 2 * lc] = d0;
+          Y[(ri + lr) * ldy + c0 + 2 * lc + 1] = d1;
+        }
+      }
+    }
     __syncthreads();
-    for (int64_t idx = tid; idx < (nb - i - 1) * R; idx += nt) {
-      const int64_t k = i + 1 + idx / R, c = idx % R;
-      Y[k * R + c] -= A[k * nb + i] * Y[i * R + c];
+  }
+  const bool fail = bad != 0;
+
+  // G = Z^T Z on m16n8k8: its 16 x 8 blocks (I, J), J >= 2 I, over the
+  // upper triangle; chi2, x_a and M_a straight from the blocks
+  const int ng = (rp >> 4) * ((rp >> 4) + 1);
+  for (int t = warp; t < ng; t += WARPS) {
+    int u = t, bI = 0;
+    while (u >= rt - 2 * bI) {
+      u -= rt - 2 * bI;
+      ++bI;
+    }
+    const int ca = bI * 16 + lr, cb = (2 * bI + u) * 8 + lr;
+    double d[4] = {0.0, 0.0, 0.0, 0.0};
+    for (int kb = 0; kb < nbp; kb += 8) {
+      const double* y0 = Y + (kb + lc) * ldy;
+      const double* y4 = y0 + 4 * ldy;
+      mma16(d, y0[ca], y0[ca + 8], y4[ca], y4[ca + 8], y0[cb], y4[cb]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = ca + 8 * (e >> 1), c = cb - lr + 2 * lc + (e & 1);
+      const double g = d[e];
+      if (r > c || c >= R) continue;
+      if (r == 0) {
+        if (c == 0) chi2[blk] = fail ? nan : rr[p] - g;
+        else
+          x_out[(size_t)blk * m2 + c - 1] =
+              fail ? nan : b_f[(size_t)p * m2 + c - 1] - g;
+      } else {
+        const double v =
+            fail ? nan : g_ff[(size_t)p * m2 * m2 + (r - 1) * m2 + c - 1] - g;
+        double* mb = m_out + (size_t)blk * m2 * m2;
+        mb[(r - 1) * m2 + c - 1] = v;
+        mb[(c - 1) * m2 + r - 1] = v;
+      }
     }
   }
-  // back substitution L^T X = Y, row by row from the last
-  for (int64_t i = nb - 1; i >= 0; --i) {
-    __syncthreads();
-    const double d = A[i * nb + i];
-    for (int64_t c = tid; c < R; c += nt) Y[i * R + c] /= d;
-    __syncthreads();
-    for (int64_t idx = tid; idx < i * R; idx += nt) {
-      const int64_t k = idx / R, c = idx % R;
-      Y[k * R + c] -= A[i * nb + k] * Y[i * R + c];
+  if (warp == WARPS - 1) {
+    // log sums: lane-strided, then a fixed shuffle tree
+    double s1 = 0.0, s2 = 0.0;
+    for (int i = lane; i < nb; i += 32) {
+      s1 = s1 + log(floored(ph[i]));
+      s2 = s2 + log(A[i * lda + i]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 = s1 + __shfl_down_sync(FULL, s1, off);
+      s2 = s2 + __shfl_down_sync(FULL, s2, off);
+    }
+    if (lane == 0) ld_out[blk] = fail ? nan : ld_white[p] + s1 + 2.0 * s2;
+  }
+  double* Lg = L_out + (size_t)blk * nb * nb;
+  for (int i = warp; i < nb; i += WARPS)
+    for (int j = lane; j < nb; j += 32)
+      Lg[i * nb + j] = fail ? nan : (j <= i ? A[i * lda + j] : 0.0);
+  __syncthreads();
+
+  // back substitution L^T X = Z by block rows from the last; the owner of
+  // a tile of block row k - 1 applies L_kk^-T to it once it is complete
+  {
+    const int p0 = (nt - 1) << 3;
+    const double* lk = li_at(A, Lx, lda, nt, nt - 1);
+    for (int t = warp; t < rt; t += WARPS) {
+      double d0 = 0.0, d1 = 0.0;
+#pragma unroll
+      for (int kb = 0; kb < 8; kb += 4)
+        dmma(d0, d1, lk[(kb + lc) * lds + lr],
+             Y[(p0 + kb + lc) * ldy + t * 8 + lr]);
+      Y[(p0 + lr) * ldy + t * 8 + 2 * lc] = d0;
+      Y[(p0 + lr) * ldy + t * 8 + 2 * lc + 1] = d1;
     }
   }
   __syncthreads();
-  double* Lg = L_out + blk * nb * nb;
-  for (int64_t idx = tid; idx < nb * nb; idx += nt) {
-    const int64_t i = idx / nb, j = idx % nb;
-    Lg[idx] = j <= i ? A[idx] : 0.0;
-  }
-  double* Xg = X_out + blk * nb * R;
-  for (int64_t idx = tid; idx < nb * R; idx += nt) Xg[idx] = Y[idx];
-  // x_a and M_a: one thread per entry, sums over k ascending
-  for (int64_t idx = tid; idx < m2 + m2 * m2; idx += nt) {
-    if (idx < m2) {
-      const int64_t i = idx;
-      double acc = 0.0;
-      for (int64_t k = 0; k < nb; ++k) acc += GF[k * m2 + i] * Y[k * R];
-      x_out[blk * m2 + i] = b_f[p * m2 + i] - acc;
-    } else {
-      const int64_t e = idx - m2, i = e / m2, j = e % m2;
-      double acc = 0.0;
-      for (int64_t k = 0; k < nb; ++k)
-        acc += GF[k * m2 + i] * Y[k * R + 1 + j];
-      m_out[blk * m2 * m2 + e] = g_ff[p * m2 * m2 + e] - acc;
+  for (int k = nt - 1; k > 0; --k) {
+    const int p0 = k << 3;
+    for (int t = warp; t < k * rt; t += WARPS) {
+      const int ti = t / rt;
+      const int r0 = ti << 3, c0 = (t - ti * rt) << 3;
+      double d0 = Y[(r0 + lr) * ldy + c0 + 2 * lc];
+      double d1 = Y[(r0 + lr) * ldy + c0 + 2 * lc + 1];
+#pragma unroll
+      for (int kb = 0; kb < 8; kb += 4)
+        dmma(d0, d1, -A[(p0 + kb + lc) * lda + r0 + lr],
+             Y[(p0 + kb + lc) * ldy + c0 + lr]);
+      if (ti == k - 1) {
+        // block row k - 1 is complete: apply L_{k-1}^-T through shared
+        Y[(r0 + lr) * ldy + c0 + 2 * lc] = d0;
+        Y[(r0 + lr) * ldy + c0 + 2 * lc + 1] = d1;
+        __syncwarp();
+        const double* lk = li_at(A, Lx, lda, nt, k - 1);
+        d0 = d1 = 0.0;
+#pragma unroll
+        for (int kb = 0; kb < 8; kb += 4)
+          dmma(d0, d1, lk[(kb + lc) * lds + lr],
+               Y[(r0 + kb + lc) * ldy + c0 + lr]);
+        __syncwarp();
+      }
+      Y[(r0 + lr) * ldy + c0 + 2 * lc] = d0;
+      Y[(r0 + lr) * ldy + c0 + 2 * lc + 1] = d1;
     }
+    __syncthreads();
   }
-  if (tid == 0) {
-    double acc = 0.0;
-    for (int64_t k = 0; k < nb; ++k) acc += b_u[p * nb + k] * Y[k * R];
-    chi2[blk] = rr[p] - acc;
-    double s1 = 0.0, s2 = 0.0;
-    for (int64_t k = 0; k < nb; ++k) s1 += log(floored(ph[k]));
-    for (int64_t k = 0; k < nb; ++k) s2 += log(A[k * nb + k]);
-    ld_out[blk] = ld_white[p] + s1 + 2.0 * s2;
-  }
+  double* Xg = X_out + (size_t)blk * nb * R;
+  for (int i = warp; i < nb; i += WARPS)
+    for (int c = lane; c < R; c += 32)
+      Xg[i * R + c] = fail ? nan : Y[i * ldy + c];
 }
 
 __global__ void kron_pulsar_bwd_kernel(
@@ -228,6 +503,7 @@ static int smem_limit(const void* fn, size_t bytes) {
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+
 extern "C" int kron_pulsar_fwd_launch(
     const double* phi, const double* g_uu, const double* g_uf,
     const double* g_ff, const double* b_u, const double* b_f,
@@ -235,12 +511,12 @@ extern "C" int kron_pulsar_fwd_launch(
     double* m_out, double* ld_out, double* L_out, double* X_out,
     int64_t n_blocks, int64_t n_psr, int64_t nb, int64_t m2,
     cudaStream_t stream) {
-  const size_t bytes = sizeof(double) * (nb * nb + nb * (1 + m2));
+  const size_t bytes = sizeof(double) * fwd_smem_doubles((int)nb, (int)m2);
   int err = smem_limit((const void*)kron_pulsar_fwd_kernel, bytes);
   if (err) return err;
   kron_pulsar_fwd_kernel<<<(unsigned)n_blocks, THREADS, bytes, stream>>>(
       phi, g_uu, g_uf, g_ff, b_u, b_f, rr, ld_white, chi2, x_out, m_out,
-      ld_out, L_out, X_out, n_psr, nb, m2);
+      ld_out, L_out, X_out, (int)n_psr, (int)nb, (int)m2);
   return (int)cudaGetLastError();
 }
 
@@ -254,4 +530,15 @@ extern "C" int kron_pulsar_bwd_launch(
   kron_pulsar_bwd_kernel<<<(unsigned)n_blocks, THREADS, bytes, stream>>>(
       phi, L, X, gchi, gx, gm, gld, gphi, nb, m2);
   return (int)cudaGetLastError();
+}
+
+// K5 blocks that fit on one SM at this width
+extern "C" int kron_pulsar_fwd_occupancy(int64_t nb, int64_t m2) {
+  const size_t bytes = sizeof(double) * fwd_smem_doubles((int)nb, (int)m2);
+  int err = smem_limit((const void*)kron_pulsar_fwd_kernel, bytes);
+  if (err) return -err;
+  int n = 0;
+  err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, kron_pulsar_fwd_kernel, THREADS, bytes);
+  return err ? -err : n;
 }

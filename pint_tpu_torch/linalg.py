@@ -378,10 +378,16 @@ def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
 # Kronecker-structured stacked-array prior (the GWB cross-pulsar block)
 # --------------------------------------------------------------------------
 
-#: kernel K3 (replaces pint_tpu linalg.py:605 kron_gram_precompute)
+#: kernel K3 (replaces pint_tpu linalg.py:605 kron_gram_precompute):
+#: two launches a call, the split partial grams and their fixed-order sum
 K3 = CudaKernel(
     "kron_gram_ragged", "kron_gram.cu", "kron_gram_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3)
+    [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 5)
+#: K3 cuts pulsar a's n_a rows into clamp(ceil(n_a / K3_SPLIT_ROWS), 1,
+#: K3_MAX_SPLITS) even splits, one block each (:func:`k3_row_splits`):
+#: constants, so the sums' order depends on the shapes only
+K3_SPLIT_ROWS = 192
+K3_MAX_SPLITS = 11
 
 #: relative ridge on each GW prior block's diagonal (pint_tpu
 #: linalg.kron_gw_blocks): the dense reference's ``_phi_terms`` jitter
@@ -497,6 +503,20 @@ def kron_gram_plain(st: RaggedStack):
     return gram, ld
 
 
+def k3_row_splits(n: int):
+    """[(first row, end row)] of K3's blocks over a pulsar of ``n``
+    rows: ascending, covering every row once (the rule the kernel
+    applies on the device)."""
+    s = min(K3_MAX_SPLITS, max(1, -(-n // K3_SPLIT_ROWS)))
+    return [(i * n // s, (i + 1) * n // s) for i in range(s)]
+
+
+def _k3_blocks(wp: int) -> int:
+    """16 x 8 blocks of K3's upper triangle at gram width ``wp``."""
+    ni = -(-wp // 16)
+    return ni * (ni + 1)
+
+
 def kron_gram_cuda(st: RaggedStack):
     """Kernel K3 on CUDA tensors; raises on what it does not take."""
     dev = st.t.device
@@ -512,10 +532,17 @@ def kron_gram_cuda(st: RaggedStack):
     if not all(x.is_contiguous() for x in parts):
         raise ValueError("kron_gram_cuda: inputs must be contiguous")
     wp = st.nb_max + st.m2 + 1
-    gram = torch.zeros((st.n_psr, wp, wp), dtype=torch.float64, device=dev)
-    ld = torch.empty(st.n_psr, dtype=torch.float64, device=dev)
-    K3.launch(dev, *(x.data_ptr() for x in parts), gram.data_ptr(),
-              ld.data_ptr(), st.n_psr, st.nb_max, st.m2)
+    f64 = dict(dtype=torch.float64, device=dev)
+    # the kernel writes every pulsar column; narrower pulsars leave pad
+    gram = (torch.empty if min(st.nb_host) == st.nb_max
+            else torch.zeros)((st.n_psr, wp, wp), **f64)
+    ld = torch.empty(st.n_psr, **f64)
+    part = torch.empty((st.n_psr, K3_MAX_SPLITS, _k3_blocks(wp), 128),
+                       **f64)
+    ld_part = torch.empty((st.n_psr, K3_MAX_SPLITS), **f64)
+    K3.launch(dev, *(x.data_ptr() for x in parts), part.data_ptr(),
+              ld_part.data_ptr(), gram.data_ptr(), ld.data_ptr(), st.n_psr,
+              st.nb_max, st.m2, K3_SPLIT_ROWS, K3_MAX_SPLITS)
     return gram, ld
 
 
@@ -563,8 +590,8 @@ K5B = CudaKernel(
     "kron_pulsar_bwd", "kron_pulsar.cu", "kron_pulsar_bwd_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
 
-#: the widest (nb, m2) K5 and K5b take: a block's shared memory
-#: (8 (nb^2 + nb (1 + m2)) bytes) must fit the H100's 227 kB
+#: the widest (nb, m2) K5 and K5b take: a block's shared memory must fit
+#: the H100's 227 kB
 K5_SHARED_BYTES = 232448
 
 
@@ -614,8 +641,20 @@ def _check_cuda(name, tensors):
     return dev
 
 
+def k5_shared_bytes(nb, m2):
+    """Shared memory of one K5 block (the capacity padded to a multiple
+    of 8 and its right-hand sides to one of 16, row strides + 4, and
+    below 3 block rows the diagonal blocks' inverses;
+    csrc/kron_pulsar.cu) and of one K5b block."""
+    nbp, rp = -(-nb // 8) * 8, -(-(1 + m2) // 16) * 16
+    nt = nbp // 8
+    return (8 * (nbp * (nbp + 4) + nbp * (rp + 4) + (nt * 96 if nt < 3
+                                                     else 0)),
+            8 * (nb * nb + nb * m2))
+
+
 def _k5_shape(nb, m2):
-    if 8 * (nb * nb + nb * (1 + m2)) > K5_SHARED_BYTES:
+    if max(k5_shared_bytes(nb, m2)) > K5_SHARED_BYTES:
         raise ValueError(f"K5/K5b: nb = {nb}, m2 = {m2} does not fit one "
                          f"block's shared memory ({K5_SHARED_BYTES} B)")
 

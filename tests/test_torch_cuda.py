@@ -90,17 +90,28 @@ def test_k3_against_plain_and_deterministic(card):
     from pint_tpu_torch import tolerances as tol
     from pint_tpu_torch import linalg as tl
 
-    # ragged rows and widths, a pulsar narrower than a tile, one wider
-    st = _stack(card, 0, [500, 37, 1200, 64], [63, 3, 40, 70], 28)
-    g1, l1 = tl.kron_gram_cuda(st)
-    g2, l2 = tl.kron_gram_cuda(st)
-    gp, lp = tl.kron_gram_plain(st)
-    ga, _ = tl.kron_gram_plain(dataclasses.replace(st, t=st.t.abs()))
-    assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
-    assert torch.equal(l1.view(torch.int64), l2.view(torch.int64))
-    assert torch.all(torch.abs(g1 - gp) <= tol.KERNEL_SUM_REL * ga)
-    assert torch.allclose(l1, lp, rtol=1e-13, atol=0)
-    assert torch.equal(g1, g1.transpose(-1, -2))
+    # ragged rows and widths, a pulsar narrower than a tile, one wider;
+    # then the split edges: fewer rows than one split (100, 1), row
+    # counts that are no multiple of the split or of the 32-row chunk
+    # (1000, 129, 10_001 past the 11-split cap), widths that are no
+    # multiple of 8 (3 + 28 + 1 = 32 is one; 70 + 28 + 1, 29 + 28 + 1)
+    # and a gram wider than one block's 48 blocks of 16 x 8 (100 + 28 + 1)
+    for seed, rows, nbs in ((0, [500, 37, 1200, 64], [63, 3, 40, 70]),
+                            (1, [100, 1000, 10_001, 129, 1],
+                             [3, 70, 63, 29, 100])):
+        st = _stack(card, seed, rows, nbs, 28)
+        assert [len(tl.k3_row_splits(n)) for n in rows[:3]] == \
+            ([3, 1, 7] if seed == 0 else [1, 6, 11])
+        g1, l1 = tl.kron_gram_cuda(st)
+        g2, l2 = tl.kron_gram_cuda(st)
+        gp, lp = tl.kron_gram_plain(st)
+        ga, _ = tl.kron_gram_plain(dataclasses.replace(st, t=st.t.abs()))
+        assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
+        assert torch.equal(l1.view(torch.int64), l2.view(torch.int64))
+        assert torch.all(torch.abs(g1 - gp) <= tol.KERNEL_SUM_REL * ga)
+        assert torch.allclose(l1, lp, rtol=1e-13, atol=0)
+        assert torch.equal(g1, g1.transpose(-1, -2))
+        assert torch.all(g1[gp == 0] == 0)  # the pad is exact zeros
     # the dispatcher launches K3 for CUDA tensors
     n0 = tl.K3.launches
     tl.kron_gram_precompute(st)
@@ -157,11 +168,14 @@ def _grams(card, seed, p, nb, m2, n=200):
         g[:, -1, -1], rng.standard_normal(p))))
 
 
-@pytest.mark.parametrize("nb", [63, 100])
+@pytest.mark.parametrize("nb", [63, 100, 29, 13])
 def test_k5_k5b_against_plain_and_deterministic(card, nb):
-    """K5/K5b at the case's width (46 kB of shared memory) and at a
-    wider pulsar (103 kB, the dynamic limit raised); a zero (padded)
-    weight pins its column and gets no gradient."""
+    """K5/K5b at the case's width (K5: 53 kB of shared memory), at a
+    wider pulsar (120 kB, the dynamic limit raised), at a width that is
+    no multiple of K5's 8-column panel (63 and 100 are none either) and
+    below 3 panels (13: the block inverses get their own area);
+    a zero (padded) weight pins its column and gets no gradient; M_a is
+    exactly symmetric."""
     from pint_tpu_torch import linalg as tl
     from pint_tpu_torch import tolerances as tol
 
@@ -178,6 +192,12 @@ def test_k5_k5b_against_plain_and_deterministic(card, nb):
         assert torch.equal(x.view(torch.int64), y.view(torch.int64))
         assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
             <= tol.KRON_PULSAR_REL
+    assert torch.equal(a[2], a[2].transpose(-1, -2))
+    for x, y, q in zip(a[4:], b[4:], pl[4:]):  # L and X for K5b
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+        assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
+            <= tol.KRON_PULSAR_REL
+    assert torch.all(torch.triu(a[4], diagonal=1) == 0)
     cots = [torch.tensor(rng.standard_normal(t.shape), device=card)
             for t in a[:4]]
     g1 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
@@ -192,6 +212,25 @@ def test_k5_k5b_against_plain_and_deterministic(card, nb):
     q = phi.clone().requires_grad_(True)
     torch.autograd.grad(tl.kron_pulsar_terms(pre, q), q, cots)
     assert (tl.K5.launches, tl.K5B.launches) == (n5 + 1, n5b + 1)
+
+
+def test_k5_failed_pivot_is_nan(card):
+    """A capacity that is not positive definite turns every output of
+    its block NaN, L included, as cho_factor does; the other blocks are
+    untouched."""
+    from pint_tpu_torch import linalg as tl
+
+    pre = _grams(card, 3, 3, 29, 28)
+    g_uu = pre.g_uu.clone()
+    g_uu[1] = -1e30 * torch.eye(29, device=card, dtype=torch.float64)
+    pre = pre._replace(g_uu=g_uu)
+    phi = torch.full((2, 3, 29), 1e-14, device=card, dtype=torch.float64)
+    out = tl.kron_pulsar_cuda(pre, phi)
+    ref = tl.kron_pulsar_plain(pre, phi)
+    for x, y in zip(out, ref):
+        assert torch.all(torch.isnan(x[:, 1]))
+        assert torch.all(torch.isfinite(x[:, [0, 2]]))
+        assert torch.all(torch.isnan(y[:, 1]))
 
 
 def test_k6_against_plain(card):

@@ -194,6 +194,25 @@ def test_kron_gram_plain_vs_jax(tos):
     assert torch.all(gram[-1, nb:st.nb_max, :] == 0)
 
 
+@pytest.mark.parametrize("n", [0, 1, 37, 127, 128, 129, 500, 1279, 1281,
+                               10_000, 10_001, 123_457])
+def test_k3_row_splits_cover_every_row_once(n):
+    """K3's split rule: ascending, contiguous, every row in exactly one
+    split; at most K3_MAX_SPLITS splits and none longer than needed."""
+    from pint_tpu_torch.linalg import (K3_MAX_SPLITS, K3_SPLIT_ROWS,
+                                       k3_row_splits)
+
+    sp = k3_row_splits(n)
+    assert sp[0][0] == 0 and sp[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(sp, sp[1:]))
+    assert all(a <= b for a, b in sp)
+    rows = np.concatenate([np.arange(a, b) for a, b in sp])
+    assert np.array_equal(rows, np.arange(n))
+    assert 1 <= len(sp) <= K3_MAX_SPLITS
+    if len(sp) < K3_MAX_SPLITS:
+        assert max(b - a for a, b in sp) <= K3_SPLIT_ROWS
+
+
 def test_kron_chi2_logdet_vs_jax(tos):
     m2 = 2 * NMODES
     r, sig, U, F, valid, phi = _padded(tos.data, m2)

@@ -251,6 +251,24 @@ def test_kron_pulsar_terms_gradcheck():
         kron_pulsar_terms(bad, phi)
 
 
+def test_k5_shared_memory_and_width_limit():
+    """K5's block holds the capacity padded to a multiple of 8 and its
+    right-hand sides to one of 16 (row strides + 4), and below 3 block
+    rows the diagonal blocks' inverses: 53,248 bytes at the case's
+    nb = 63, m2 = 28; a pulsar too wide for one block's shared memory
+    raises before any launch."""
+    from pint_tpu_torch.linalg import K5_SHARED_BYTES, _k5_shape, \
+        k5_shared_bytes
+
+    assert k5_shared_bytes(63, 28) == (53248, 8 * (63 * 63 + 63 * 28))
+    assert k5_shared_bytes(29, 28)[0] == 8 * (32 * 36 + 32 * 36)
+    assert k5_shared_bytes(16, 3)[0] == 8 * (16 * 20 + 16 * 20 + 2 * 96)
+    _k5_shape(100, 28)
+    assert max(k5_shared_bytes(144, 28)) <= K5_SHARED_BYTES
+    with pytest.raises(ValueError, match="shared memory"):
+        _k5_shape(145, 28)
+
+
 # --------------------------------------------------------------------------
 # the sampler
 # --------------------------------------------------------------------------
