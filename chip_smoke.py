@@ -10,7 +10,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K6, one nvcc per source, all started together), with its time;
+   (K1-K7 and the wide forms K5w/K5bw, one nvcc per source, all started
+   together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
    ``n`` and the bits of ``frac`` identical;
@@ -46,7 +47,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 10. the Bayesian GWB posterior on the same array
     (``GWBPosterior(CommonProcess(pairs, nmodes=14))``, 138 dimensions:
     the GWB's (log10 A, gamma) and every pulsar's TNREDAMP, TNREDGAM):
-    a production ``run_nuts`` of 16 chains, 32 warmup and 32 sampling
+    a production ``run_nuts`` of 16 chains, 16 warmup and 16 sampling
     draws in chunks of 16, 12 leapfrog steps, from the generator seeded
     0 -- launch counts of K1, K3, K5, K5b and K6 during the path (K5,
     K5b, K6 > 0), warm chain-draws/s, gradients/s and ms per leapfrog
@@ -70,11 +71,39 @@ the closing ``{"ok": true, ...}`` line is not printed:
     same states and draws:
     the same accept decisions, positions, momenta and step sizes within
     4 ulp;
-13. the ``kernels`` JSON line: per kernel its launches on its main path
-    (the fit for K1 and K2, the GW path for K3 and K4, the HMC run for
-    K5, K5b and K6), error against the plain version, time,
-    plain-version time, bound, and the library call's time where one
-    PyTorch call computes the same function.
+13. ``ingest``: ``get_model_and_toas`` on the committed
+    ``pint_tpu_torch/data/b1855_like.par`` and ``b1855_epochs_10k.tim``,
+    cold, held to the JAX table of ``b1855_epochs_10k_answers.npz``:
+    ticks, TZR ticks, parsed columns and flags identical, the geometry
+    bit for bit or within ``tolerances.INGEST_GEOMETRY_REL``, the prefit
+    residuals on the card within 1e-11 s;
+14. ``fit_par_tim``: ``GLSFitter`` and ``WLSFitter`` (maxiter=3) from
+    those TOAs on the card, held to JAX's values, uncertainties, chi^2
+    per iteration, final chi^2 and n_truncated with the
+    conditioning-aware limits; launches of K1, K2 and K7 during each
+    fit; cold and warm walls, TOAs/s, busy share of a warm fit;
+15. ``k7`` (WLS whitening pass) against its plain version at the WLS
+    fit's own (r, J, sigma) and at N = 10^4, P = 11: rw bit-identical,
+    the rest within ``tolerances.WLS_WHITEN_REL``, bit-identical run to
+    run; time, bound, ptxas report;
+16. ``wide case``: ``pint_tpu_torch/data/pta4_wide.npz`` (4 pulsars,
+    100 red-noise modes, nb = 203) -- ``lnlike``, a 2 x 2 grid and the
+    posterior's value_and_grad at 4 theta on the card against the JAX
+    answers it carries; launches of the wide forms K5w and K5bw (> 0);
+17. ``k5 wide``: K5w and K5bw against their plain versions at the wide
+    path's own inputs (the common process's noise weights, 1 x 4
+    pulsars, and the posterior's at its 4 theta), at the wide case's
+    grams with 16 chains and at nb = 470, m2 = 28 (16 chains x 4
+    pulsars): within ``tolerances.KRON_PULSAR_REL``, bit-identical run
+    to run, no ptxas spill; times beside the library calls and bounds
+    (the kernels line takes the posterior's 4-theta row, the shape at
+    which K5bw runs on the path);
+18. the ``kernels`` JSON line: per kernel its launches on its main path
+    (the fit for K1 and K2, the WLS fit from par/tim for K7, the GW path
+    for K3 and K4, the HMC run for K5, K5b and K6, the wide case for K5w
+    and K5bw), error against the plain version, time, plain-version
+    time, bound, and the library call's time where one PyTorch call
+    computes the same function.
 
 Kernel times are device times per call (CUDA events around 50 calls
 queued behind a sleep kernel, after a warm-up, :func:`queued_ms`) at
@@ -217,10 +246,10 @@ def phase_build():
     from pint_tpu_torch.fixedpoint import K1
     from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
-    from pint_tpu_torch.linalg import K2, K3, K5
+    from pint_tpu_torch.linalg import K2, K3, K5, K7
 
     t0 = time.time()
-    libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6)])
+    libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -774,11 +803,11 @@ def synthetic_stack(n_psr, n_rows, nb, m2, seed=0):
                        nb_host=(nb,) * n_psr, m2=m2)
 
 
-def build_report(kernel, names, occupancy, *occ_args):
+def build_report(kernel, names, occupancy=None, *occ_args):
     """ptxas's registers and spills for the kernels of ``kernel``'s
     source whose names contain one of ``names``, and the blocks per SM
-    the occupancy query gives; raises if ptxas reported nothing or a
-    spill."""
+    the occupancy query gives (where the source has one); raises if
+    ptxas reported nothing or a spill."""
     from pint_tpu_torch import _cuda
 
     rep = _cuda.ptxas_report(_cuda.build_log(kernel.source) or "")
@@ -789,6 +818,8 @@ def build_report(kernel, names, occupancy, *occ_args):
               if v.get("spill_stores", 0) or v.get("spill_loads", 0)}
     if spills:
         raise AssertionError(f"ptxas spills in {kernel.source}: {spills}")
+    if occupancy is None:
+        return {"ptxas": ptx}
     return {"ptxas": ptx, "blocks_per_sm": kernel.call(occupancy, *occ_args)}
 
 
@@ -893,8 +924,9 @@ def phase_k4(ost):
     return out
 
 
-#: the production run of the HMC phase (16 chains, 32 + 32 draws)
-HMC_RUN = dict(n_chains=16, num_warmup=32, num_samples=32, chunk=16,
+#: the production run of the HMC phase (16 chains, 16 + 16 draws; 32 + 32
+#: until the par/tim and wide-case phases needed the time)
+HMC_RUN = dict(n_chains=16, num_warmup=16, num_samples=16, chunk=16,
                num_leapfrog=12)
 
 
@@ -1089,8 +1121,6 @@ def phase_k5(post):
     d = torch.sqrt(torch.diagonal(cap, dim1=-2, dim2=-1))
     ev = torch.linalg.eigvalsh(cap / (d[..., :, None] * d[..., None, :]))
     kappa = float(torch.max(ev[..., -1] / ev[..., 0]))
-    max_abs = max(float(torch.max(torch.abs(x - y)))
-                  for x, y in zip(a[:4], p[:4]))
     log(f"k5: {c} chains x {phi.shape[1]} pulsars, nb {phi.shape[2]}, "
         f"m2 {pre.g_ff.shape[-1]}: kernel vs plain (vector_rel) "
         + json.dumps(errs) + f" (limit {tol.KRON_PULSAR_REL:g}); "
@@ -1098,6 +1128,32 @@ def phase_k5(post):
         f"capacity {kappa!r}")
     if not (rerun and all(v <= tol.KRON_PULSAR_REL for v in errs.values())):
         raise AssertionError("K5/K5b disagree with their plain versions")
+    out = k5_times(pre, phi, a, p, cots, ga, gp, ("k5", "k5b"))
+    nb, m2 = phi.shape[2], pre.g_ff.shape[-1]
+    out["k5"].update(build_report(K5, ("kron_pulsar_fwd_kernel",),
+                                  "kron_pulsar_fwd_occupancy", nb, m2))
+    out["k5"]["waves"] = out["k5"]["blocks"] / (
+        out["k5"]["blocks_per_sm"]
+        * torch.cuda.get_device_properties(0).multi_processor_count)
+    for label in ("k5", "k5b"):
+        log(f"{label} at {c} chains: " + json.dumps(out[label]))
+    return out
+
+
+def k5_times(pre, phi, a, p, cots, ga, gp, labels, reps=50):
+    """{forward label: row, backward label: row} of the per-pulsar stage
+    at (pre, phi): the kernels' times (the launchers choose the narrow
+    or the wide form by shape) beside their plain versions, the library
+    calls (batched cholesky_ex + cholesky_solve + matmul; autograd of
+    the plain forward), the bounds and the largest |kernel - plain|.
+    ``a``/``p`` are the kernel's and the plain forward's outputs,
+    ``ga``/``gp`` the backward's for the cotangents ``cots``."""
+    import torch
+
+    from pint_tpu_torch.linalg import (kron_pulsar_bwd_cuda,
+                                       kron_pulsar_bwd_plain,
+                                       kron_pulsar_cuda, kron_pulsar_plain)
+
     b_, p_, nb = phi.shape
     m2 = pre.g_ff.shape[-1]
     r = 1 + m2
@@ -1112,46 +1168,39 @@ def phase_k5(post):
                         + nb * nb + 12 * nb)
     fb, fby = bound_ms(fwd_bytes, fwd_flops, FP64_TC_FLOPS)
     bb, bby = bound_ms(bwd_bytes, bwd_flops, FP64_TC_FLOPS)
-    cap_c = cap.contiguous()
+    cap = (pre.g_uu + torch.diag_embed(
+        1.0 / torch.clamp(phi, min=1e-30))).contiguous()
     rhs = torch.cat([pre.b_u[..., None], pre.g_uf], dim=-1).expand(
         b_, p_, nb, r).contiguous()
     g_fu = pre.g_uf.transpose(-1, -2)
 
     def lib_fwd():
-        L, _ = torch.linalg.cholesky_ex(cap_c)
+        L, _ = torch.linalg.cholesky_ex(cap)
         X = torch.cholesky_solve(rhs, L)
         return g_fu @ X[..., 1:]
     phi_r = phi.clone().requires_grad_(True)
-    outs = [o for o in kron_pulsar_plain(pre, phi_r)[:4]]
+    outs = list(kron_pulsar_plain(pre, phi_r)[:4])
 
     def lib_bwd():
         return torch.autograd.grad(outs, phi_r, cots, retain_graph=True)
     out = {}
     for label, kern, plain, lib, bnd, by, err in (
-            ("k5", lambda: kron_pulsar_cuda(pre, phi),
-             lambda: kron_pulsar_plain(pre, phi), lib_fwd, fb, fby,
-             max_abs),
-            ("k5b", lambda: kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots),
-             lambda: kron_pulsar_bwd_plain(phi, a[4], a[5], *cots),
-             lib_bwd, bb, bby,
-             float(torch.max(torch.abs(ga - gp))))):
-        ms, how = kernel_ms(kern)
-        plain_ms, _ = kernel_ms(plain)
-        lib_ms, _ = kernel_ms(lib)
+            (labels[0], partial(kron_pulsar_cuda, pre, phi),
+             partial(kron_pulsar_plain, pre, phi), lib_fwd, fb, fby,
+             max(float(torch.max(torch.abs(x - y)))
+                 for x, y in zip(a[:4], p[:4]))),
+            (labels[1], partial(kron_pulsar_bwd_cuda, phi, a[4], a[5],
+                                *cots),
+             partial(kron_pulsar_bwd_plain, phi, a[4], a[5], *cots),
+             lib_bwd, bb, bby, float(torch.max(torch.abs(ga - gp))))):
+        ms, how = kernel_ms(kern, reps)
+        plain_ms, _ = kernel_ms(plain, reps)
+        lib_ms, _ = kernel_ms(lib, reps)
         out[label] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                       "bound_ms": bnd, "bound_by": by, "max_abs_err": err,
                       "timed_by": how,
                       "per_call_with_enqueue_ms": cuda_ms(kern, reps=20),
-                      "kernels_per_call": 1,
-                      "blocks": nblk}
-        if label == "k5":
-            out[label].update(build_report(
-                K5, ("kron_pulsar_fwd",), "kron_pulsar_fwd_occupancy", nb,
-                m2))
-            out[label]["waves"] = nblk / (out[label]["blocks_per_sm"]
-                                          * torch.cuda.get_device_properties(
-                                              0).multi_processor_count)
-        log(f"{label} at {c} chains: " + json.dumps(out[label]))
+                      "kernels_per_call": 1, "blocks": nblk}
     return out
 
 
@@ -1262,6 +1311,328 @@ def phase_k6():
     return out
 
 
+def phase_ingest():
+    """``get_model_and_toas(par, tim)`` on the committed B1855-like par
+    and 10k tim, cold, held to the JAX table stored beside them: ticks
+    exact, the parsed columns exact, the geometry bit for bit or within
+    ``tolerances.INGEST_GEOMETRY_REL``; the prefit residuals on the card
+    within ``tolerances.PREFIT_S`` of JAX's."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import (B1855_PAR, B1855_TIM,
+                                        B1855_TIM_ANSWERS, load_arrays)
+    from pint_tpu_torch.models.builder import get_model_and_toas
+    from pint_tpu_torch.residuals import Residuals
+
+    ref = load_arrays(B1855_TIM_ANSWERS)
+    t0 = time.time()
+    model, toas = get_model_and_toas(str(B1855_PAR), str(B1855_TIM))
+    table = toas.to_table()
+    cold_s = time.time() - t0
+    if model.free_params != [str(p) for p in ref["free_params"]]:
+        raise AssertionError("ingest: free parameters differ from JAX")
+    ticks_same = bool(np.array_equal(table.ticks, ref["toa_ticks"]))
+    exact = {k: bool(np.array_equal(getattr(table, k), ref[f"toa_{k}"]))
+             for k in ("freq_mhz", "error_us", "mjd_float")}
+    flags_same = all(
+        np.array_equal(n, ref[f"toa_flag_{k}_names"])
+        and np.array_equal(i, ref[f"toa_flag_{k}_index"])
+        for k, (n, i) in table.flags.items())
+    geom = {k: {"bit_identical": bool(np.array_equal(
+                    getattr(table, k), ref[f"toa_{k}"])),
+                "vector_rel": tol.vector_rel(getattr(table, k),
+                                             ref[f"toa_{k}"])}
+            for k in ("ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos")}
+    tzr = model.component("AbsPhase").make_tzr_toas(model, toas)
+    tzr_same = bool(np.array_equal(tzr.ticks, ref["tzr_ticks"]))
+    torch.cuda.synchronize()
+    r = Residuals(toas, model, device="cuda")
+    d_pre = float(np.max(np.abs(r.time_resids
+                                - ref["prefit_time_resids"])))
+    log(f"ingest: {len(table)} TOAs, cold get_model_and_toas + table "
+        f"{cold_s:.3f} s ({len(table) / cold_s:.1f} TOAs/s); ticks "
+        f"identical {ticks_same}, TZR ticks identical {tzr_same}, parsed "
+        f"columns identical {exact}, flags identical {flags_same}; "
+        f"geometry " + json.dumps(geom) + f" (limit "
+        f"{tol.INGEST_GEOMETRY_REL:g}); prefit residuals on the card max "
+        f"|d| vs JAX {d_pre:.3e} s (limit {tol.PREFIT_S:g} s)")
+    if not (ticks_same and tzr_same and all(exact.values()) and flags_same
+            and all(g["vector_rel"] <= tol.INGEST_GEOMETRY_REL
+                    for g in geom.values())
+            and d_pre <= tol.PREFIT_S):
+        raise AssertionError("ingest disagrees with JAX")
+    return model, toas, ref, cold_s
+
+
+def phase_fit_par_tim(model, toas, ref):
+    """GLS and WLS fits (maxiter=3) from the ingested par and tim on the
+    card, held to JAX's answers with the conditioning-aware limits;
+    launches of K1, K2 and K7 during each fit; cold and warm walls,
+    TOAs/s and the busy share of a warm fit."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7
+
+    kernels = {"K1": K1, "K2": K2, "K7": K7}
+    free = [str(p) for p in ref["free_params"]]
+    out = {}
+    for name, cls in (("gls", GLSFitter), ("wls", WLSFitter)):
+        m = copy.deepcopy(model)
+        start = dict(m.values)
+        # the main path: counts reset just before, read just after
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        f = cls(toas, m, device="cuda")
+        chi2 = f.fit_toas(maxiter=3)
+        torch.cuda.synchronize()
+        cold_s = time.time() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        cond = f.fit_health["cond_log10"]
+        if name == "wls":
+            cond = tol.wls_normal_cond_log10(cond)
+        tols = tol.fit_tolerances(cond)
+        errs = tol.fit_errors(
+            [m.values[k] for k in free], [m.uncertainties[k] for k in free],
+            f.chi2_iters, ref[f"{name}_values"], ref[f"{name}_uncertainties"],
+            ref[f"{name}_chi2_iters"])
+        errs["final_chi2_rel"] = abs(chi2 / float(ref[f"{name}_final_chi2"])
+                                     - 1.0)
+        tols["final_chi2_rel"] = tols["chi2_rel"]
+        ntr = (f.fit_health["n_truncated"], int(ref[f"{name}_n_truncated"]))
+
+        def warm(f=f, m=m, start=start):
+            m.values.update(start)
+            f.fit_toas(maxiter=3)
+            torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(3):
+            warm()
+        warm_s = (time.time() - t0) / 3
+        busy, dev_ms = profile_breakdown(warm, warm_s, f"fit_{name}")
+        out[name] = {"launches": launches, "cold_s": cold_s,
+                     "warm_s": warm_s, "toas_per_s": len(toas) / warm_s,
+                     "busy": busy, "device_ms": dev_ms, "fitter": f}
+        log(f"fit_par_tim {name}: launches {launches}; chi2 per iteration "
+            f"{f.chi2_iters} (JAX {ref[f'{name}_chi2_iters'].tolist()}); "
+            f"n_truncated {ntr[0]} (JAX {ntr[1]}), health {f.fit_health}; "
+            f"observed " + json.dumps(errs) + " tolerances "
+            + json.dumps(tols) + f"; wall cold {cold_s:.3f} s, warm "
+            f"{warm_s:.3f} s, {len(toas) / warm_s:.1f} TOAs/s, busy "
+            f"{busy * 100:.2f}%")
+        bad = [k for k in errs if not errs[k] <= tols[k]]
+        if bad or ntr[0] != ntr[1]:
+            raise AssertionError(f"{name} fit disagrees with JAX on {bad} "
+                                 f"(n_truncated {ntr})")
+        need = ("K1", "K2", "K7") if name == "wls" else ("K1", "K2")
+        if not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"a kernel of the {name} fit never ran: "
+                                 f"{launches}")
+    return out
+
+
+def phase_k7(f_wls):
+    """K7 against wls_whiten_plain on the card: at the WLS fit's own
+    (r, J, sigma) and at N = 10^4, P = 11; run-to-run bit identity;
+    time, plain time and bound at the latter."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.linalg import K7, wls_whiten_cuda, wls_whiten_plain
+
+    vec = torch.tensor([f_wls.model.values[k] for k in f_wls._traced_free],
+                       dtype=torch.float64, device="cuda")
+    base = f_wls.prepared.values_dict()
+    r, J = f_wls._rj(vec, base, f_wls._fit_data)
+    sigma = f_wls._fit_data["noise_sigma"]
+    rng = np.random.default_rng(11)
+    n, p = 10_000, 11
+    syn = (torch.tensor(rng.standard_normal(n) * 1e-6, device="cuda"),
+           torch.tensor(rng.standard_normal((n, p))
+                        * 10.0 ** rng.uniform(-8, 8, p), device="cuda"),
+           torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device="cuda"))
+    errs, same = {}, True
+    for label, args in (("fit", (r.detach(), J.detach(), sigma)),
+                        ("n10k_p11", syn)):
+        a = wls_whiten_cuda(*args)
+        b = wls_whiten_cuda(*args)
+        q = wls_whiten_plain(*args)
+        torch.cuda.synchronize()
+        same = same and _bits_equal(a, b) and torch.equal(a[0], q[0])
+        errs[label] = {nm: tol.vector_rel(x.cpu().numpy(), y.cpu().numpy())
+                       for nm, x, y in zip(("rw", "Jn", "norms", "chi2"),
+                                           a, q)}
+    max_abs = max(float(torch.max(torch.abs(x - y)))
+                  for x, y in zip(wls_whiten_cuda(*syn),
+                                  wls_whiten_plain(*syn)))
+    log(f"k7: vs plain (vector_rel) " + json.dumps(errs) + f" (limit "
+        f"{tol.WLS_WHITEN_REL:g}; rw bit-identical); run-to-run "
+        f"bit-identical {same}; fit shape {tuple(J.shape)}")
+    if not (same and all(v <= tol.WLS_WHITEN_REL for e in errs.values()
+                         for v in e.values())):
+        raise AssertionError("K7 disagrees with its plain version")
+    ms, how = kernel_ms(partial(wls_whiten_cuda, *syn))
+    plain_ms, _ = kernel_ms(partial(wls_whiten_plain, *syn))
+    b, by = bound_ms(8 * (2 * n * p + 3 * n + p + 1), 3 * n * p + 4 * n)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": b, "bound_by": by, "max_abs_err": max_abs,
+           "timed_by": how, "kernels_per_call": 2,
+           "per_call_with_enqueue_ms": cuda_ms(partial(wls_whiten_cuda,
+                                                       *syn))}
+    out.update(build_report(K7, ("wls_whiten_partial", "wls_whiten_apply")))
+    out["splits"] = K7.call("wls_whiten_splits", n)
+    log(f"k7 at N={n}, P={p}: " + json.dumps(out))
+    return out
+
+
+def synthetic_grams(n_psr, nb, m2, seed, n_rows=None):
+    """KronGram of ``n_psr`` random pulsars of width nb (+ m2 GW
+    columns) over ``n_rows`` rows, on the card."""
+    import torch
+
+    from pint_tpu_torch.linalg import KronGram
+
+    rng = np.random.default_rng(seed)
+    n = n_rows or nb + 100
+    t = rng.standard_normal((n_psr, n, nb + m2 + 1))
+    w = rng.uniform(0.5, 2.0, (n_psr, n)) * 1e12
+    g = np.einsum("pni,pn,pnj->pij", t, w, t)
+    u, f = slice(0, nb), slice(nb, nb + m2)
+    return KronGram(*(torch.tensor(a.copy(), device="cuda") for a in (
+        g[:, u, u], g[:, u, f], g[:, f, f], g[:, u, -1], g[:, f, -1],
+        g[:, -1, -1], rng.standard_normal(n_psr))))
+
+
+def phase_wide_case():
+    """The wide PTA case (``pint_tpu_torch/data/pta4_wide.npz``) on the
+    card: lnlike, the 2 x 2 grid and the posterior's value_and_grad
+    against the JAX answers it carries; launches of K5w and K5bw during
+    the path (both > 0)."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import (PTA4_WIDE, load_arrays,
+                                        pta_case_from_arrays)
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.gw.hmc import GWBPosterior
+    from pint_tpu_torch.linalg import K5, K5B, K5BW, K5W
+
+    arrays = load_arrays(PTA4_WIDE)
+    pairs = pta_case_from_arrays(arrays)
+    kernels = {"K5": K5, "K5b": K5B, "K5w": K5W, "K5bw": K5BW}
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    crn = CommonProcess(pairs, nmodes=int(arrays["ref_nmodes"]),
+                        device="cuda")
+    la, ga = (float(x) for x in arrays["ref_lnlike_point"])
+    lnl = crn.lnlike(la, ga)
+    surf = crn.lnlike_grid(arrays["ref_grid_log10_amp"],
+                           arrays["ref_grid_gamma"])
+    post = GWBPosterior(crn)
+    lnp, g = (a.cpu().numpy() for a in post.value_and_grad(
+        torch.as_tensor(arrays["ref_theta"], device="cuda")))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    nb, m2 = post.gram.g_uu.shape[-1], post.gram.g_ff.shape[-1]
+    ref_g = arrays["ref_grad"]
+    errs = {
+        "lnlike": abs(lnl / float(arrays["ref_lnlike"]) - 1),
+        "grid": float(np.max(np.abs(surf / arrays["ref_grid_lnlike"] - 1))),
+        "lnprob": float(np.max(np.abs(lnp / arrays["ref_lnprob"] - 1))),
+        "grad": max(float(np.max(np.abs(g[i] - ref_g[i])
+                                 / np.max(np.abs(ref_g[i]))))
+                    for i in range(len(ref_g)))}
+    tols = {"lnlike": tol.GW_LNLIKE_REL, "grid": tol.GW_LNLIKE_REL,
+            "lnprob": tol.GW_LNLIKE_REL, "grad": tol.HMC_GRAD_REL}
+    log(f"wide case: {len(pairs)} pulsars, nb {nb}, m2 {m2}; launches "
+        f"during the path {launches}; vs JAX " + json.dumps(errs)
+        + " limits " + json.dumps(tols) + f"; wall {wall:.3f} s")
+    if any(not errs[k] <= tols[k] for k in errs):
+        raise AssertionError("the wide case disagrees with JAX")
+    if not (launches["K5w"] > 0 and launches["K5bw"] > 0):
+        raise AssertionError(f"a wide kernel never ran: {launches}")
+    return {"launches": launches, "post": post, "crn": crn,
+            "theta": arrays["ref_theta"]}
+
+
+def phase_k5_wide(wide):
+    """K5w and K5bw against their plain versions on the card: at the
+    wide path's own inputs (the common process's noise weights, which
+    ``lnlike`` and the grid reduce once, and the posterior's at the 4
+    theta of its value_and_grad), at the wide case's grams with 16
+    chains of perturbed red-noise weights, and at nb = 470, m2 = 28,
+    16 chains x 4 pulsars (a pulsar of 400 ECORR epochs and 30
+    red-noise modes); bit identity run to run, ptxas report, times
+    beside the library calls and the bound."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.linalg import (K5W, k5_wide_panel,
+                                       kron_pulsar_bwd_cuda,
+                                       kron_pulsar_bwd_plain,
+                                       kron_pulsar_cuda, kron_pulsar_plain)
+
+    post, kd = wide["post"], wide["crn"].kron_data
+    rng = np.random.default_rng(9)
+    c = HMC_RUN["n_chains"]
+    th = np.repeat(post.center()[None], c, axis=0)
+    th[:, 2:] += rng.uniform(-0.5, 0.5, th[:, 2:].shape)
+    cases = {
+        "path b1": (kd.gram, kd.phi_noise[None].contiguous()),
+        "path b4": (post.gram, post.phi_noise_at(torch.as_tensor(
+            wide["theta"], device="cuda")).contiguous()),
+        "16 chains": (post.gram, post.phi_noise_at(
+            torch.as_tensor(th, device="cuda")).contiguous())}
+    pre470 = synthetic_grams(4, 470, 28, seed=470)
+    cases["nb470"] = (pre470, torch.tensor(
+        10.0 ** rng.uniform(-16, -12, (c, 4, 470)), device="cuda"))
+    out = {}
+    for label, (pre, phi) in cases.items():
+        a = kron_pulsar_cuda(pre, phi)
+        b = kron_pulsar_cuda(pre, phi)
+        p = kron_pulsar_plain(pre, phi)
+        cots = [torch.as_tensor(rng.standard_normal(t.shape), device="cuda")
+                for t in a[:4]]
+        ga = kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+        gb = kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+        gp = kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
+        torch.cuda.synchronize()
+        names = ("chi2", "x", "m", "ld", "L", "X")
+        errs = {n: tol.vector_rel(x.cpu().numpy(), y.cpu().numpy())
+                for n, x, y in zip(names, a, p)}
+        errs["grad_phi"] = tol.vector_rel(ga.cpu().numpy(),
+                                          gp.cpu().numpy())
+        rerun = _bits_equal(a, b) and _bits_equal((ga,), (gb,))
+        b_, p_, nb = phi.shape
+        m2 = pre.g_ff.shape[-1]
+        log(f"k5 wide {label}: {b_} chains x {p_} pulsars, nb {nb}, m2 "
+            f"{m2}, panel {k5_wide_panel(nb)}: kernel vs plain "
+            "(vector_rel) " + json.dumps(errs) + f" (limit {tol.KRON_PULSAR_REL:g}); run-to-run "
+            f"bit-identical {rerun}")
+        if not (rerun and all(v <= tol.KRON_PULSAR_REL
+                              for v in errs.values())):
+            raise AssertionError(f"K5w/K5bw disagree at {label}")
+        rows = k5_times(pre, phi, a, p, cots, ga, gp,
+                        (f"k5w {label}", f"k5bw {label}"), reps=10)
+        for name, row in rows.items():
+            log(f"{name}: " + json.dumps(row))
+        out.update(rows)
+    rep = build_report(K5W, ("kron_pulsar_fwd_wide", "kron_pulsar_bwd_wide"))
+    log("k5 wide ptxas: " + json.dumps(rep))
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -1292,12 +1663,15 @@ def main():
     failures = []
 
     def run(name, fn, *args):
+        t0 = time.time()
         try:
             return fn(*args)
         except Exception:  # a failed phase is reported, the rest still run
             failures.append(name)
             log(f"PHASE FAILED: {name}\n{traceback.format_exc()}")
             return None
+        finally:
+            log(f"phase {name}: {time.time() - t0:.1f} s")
 
     card = run("card", phase_card)
     run("build", phase_build)
@@ -1312,6 +1686,18 @@ def main():
             table = run("kernel table", phase_kernel_table, f, launches,
                         k1_err, k2_err)
         run("torch rows", phase_torch_rows, f, start_values)
+    ingest = run("ingest", phase_ingest)
+    k7 = fits = None
+    if ingest is not None:
+        fits = run("fit_par_tim", phase_fit_par_tim, *ingest[:3])
+        if fits is not None:
+            k7 = run("k7", phase_k7, fits["wls"]["fitter"])
+    if table is not None and k7 is not None:
+        table.append(gw_row("wls_whiten", "wls_whiten.cu",
+                            "pint_tpu/fitter.py:152",
+                            fits["wls"]["launches"]["K7"], k7))
+    else:
+        table = None
     pta_arrays, pairs = load_pta_case()
     gw = run("gw path", phase_gw, pta_arrays, pairs)
     if gw is not None:
@@ -1343,6 +1729,18 @@ def main():
                        "pint_tpu/gw/hmc.py:365", n["K6"], k6)]
         else:
             table = None
+    else:
+        table = None
+    wide = run("wide case", phase_wide_case)
+    k5w = run("k5 wide", phase_k5_wide, wide) if wide else None
+    if table is not None and k5w is not None:
+        n = wide["launches"]
+        table += [
+            gw_row("kron_pulsar_fwd_wide", "kron_pulsar.cu",
+                   "pint_tpu/linalg.py:701", n["K5w"], k5w["k5w path b4"]),
+            gw_row("kron_pulsar_bwd_wide", "kron_pulsar.cu",
+                   "pint_tpu/linalg.py:701", n["K5bw"],
+                   k5w["k5bw path b4"])]
     else:
         table = None
     leaked = [m for m in ("jax", "pint_tpu") if m in sys.modules]

@@ -15,6 +15,8 @@ versions of the hand-written kernels (the tests do).
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import torch
 
 __version__ = "0.1.0"
@@ -28,10 +30,15 @@ AU_LS = AU_M / C_M_PER_S  #: AU in light-seconds (~499.005)
 DM_CONST = 1.0 / 2.41e-4
 #: GM_sun / c^3 [s]
 T_SUN_S = 4.925490947000452e-06
+OBLIQUITY_J2000_ARCSEC = 84381.406  #: IAU 2006 J2000 obliquity
 DAYS_PER_JULIAN_YEAR = 365.25
 SECS_PER_JULIAN_YEAR = DAYS_PER_JULIAN_YEAR * SECS_PER_DAY
 
 F64 = torch.float64
+
+#: the JAX package's data directory (builtin ephemeris, clock and EOP
+#: files), read in place and never copied
+DATA_DIR = str(Path(__file__).resolve().parent.parent / "pint_tpu" / "data")
 
 
 def resolve_device(device=None) -> torch.device:

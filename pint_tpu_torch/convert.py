@@ -36,6 +36,16 @@ PTA68_500 = Path(__file__).resolve().parent / "data" / "pta68_500.npz"
 #: the JAX CPU answers of the GWB posterior on that array
 #: (``tools/export_torch_hmc_case.py``)
 HMC_CASE = Path(__file__).resolve().parent / "data" / "pta68_500_hmc.npz"
+#: the par and tim of the B1855-like 10k epoch case, and the JAX CPU
+#: answers of ``get_model_and_toas`` and both fits on them
+#: (``tools/export_torch_tim_case.py``)
+B1855_PAR = Path(__file__).resolve().parent / "data" / "b1855_like.par"
+B1855_TIM = Path(__file__).resolve().parent / "data" / "b1855_epochs_10k.tim"
+B1855_TIM_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "b1855_epochs_10k_answers.npz"
+#: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
+#: with the JAX CPU answers of its likelihood and posterior
+PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"
 
 #: component class -> constructor arguments the spec may carry
 _COMPONENTS = {
@@ -149,10 +159,15 @@ def case_to_arrays(model, toas, tzr=None) -> dict:
     return out
 
 
+def load_arrays(path) -> dict:
+    """Every array of an ``.npz`` file, loaded without pickles."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
 def load_case(path=B1855_EPOCHS_10K):
     """(arrays dict, model, toas, tzr) from a case file."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files}
+    arrays = load_arrays(path)
     model, toas, tzr = case_from_arrays(arrays)
     return arrays, model, toas, tzr
 
@@ -171,8 +186,7 @@ def pta_case_from_arrays(arrays):
 
 def load_pta_case(path=PTA68_500):
     """(arrays dict, [(model, toas, tzr), ...]) from a PTA case file."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files}
+    arrays = load_arrays(path)
     return arrays, pta_case_from_arrays(arrays)
 
 
@@ -180,5 +194,4 @@ def load_hmc_reference(path=HMC_CASE) -> dict:
     """The arrays of a GWB-posterior reference file: layout, lnprob and
     its gradient at stored theta, and an injected-draw run with its
     result (``tools/export_torch_hmc_case.py``)."""
-    with np.load(path, allow_pickle=False) as z:
-        return {k: z[k] for k in z.files}
+    return load_arrays(path)

@@ -497,6 +497,329 @@ __global__ void kron_pulsar_bwd_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5w and K5bw: the wide forms of K5 and K5b, for the (nb, m2) whose
+// capacity the shared-memory forms above cannot hold (the launchers in
+// pint_tpu_torch/linalg.py choose by shape).  Same inputs, same outputs
+// in the same layouts, same formulas; what changes is where the
+// matrices live.  Panels are bs = 8, 16 or 32 columns wide: the widest
+// at which both kernels' shared memory fits WIDE_SMEM_BYTES, chosen by
+// wide_panel_log2 (kron_pulsar_wide_panel exports the choice).
+//
+// K5w: one block per (chain, pulsar).  The capacity is formed in the
+// block's slice of L_out (global memory, allocated by the launcher) and
+// factored there in place by a right-looking blocked Cholesky: warp 0
+// factors the bs x bs diagonal block in shared memory (one lane per
+// row, sqrt and divisions, a pivot not > 0 flags the block), a thread
+// per row forms the panel L21 = A21 L11^-T into shared memory (row
+// stride bs + 1, so a warp's 32 rows fall in 32 banks) and into L,
+// a thread per column forms Z1 = L11^-1 Y1 in X_out, and the trailing
+// update A22 -= L21 L21^T (lower triangle), Y2 -= L21 Z1 runs a warp per
+// row, a lane per column, each sum over the panel in ascending order.
+// Then G = Z^T Z gives chi2, x and M (upper half summed over rows in
+// ascending order, mirrored), the two log sums take a fixed 256-way
+// split and halving tree, and the back substitution L^T X = Z runs by
+// panels from the last (diagonal block from shared memory, rows above
+// updated a warp per row).  A failed pivot makes every output NaN.
+//
+// K5bw: one block per (chain, pulsar).  diag(cap^-1)_k = sum_i W_ik^2,
+// W = L^-1, from column panels of W: each panel (nb x bs, in shared
+// memory) solves L W_p = E_p by row blocks (the block's rows by one
+// thread per column, the rows below it updated by all threads), then
+// each column's squares are summed in ascending row order.  The rest is
+// K5b's formula, one thread per k.
+//
+// Both have fixed summation orders and one owner per entry and step,
+// so they are bit-identical from run to run; indices are 32-bit or
+// int64 products, with no 64-bit division (the block's pulsar is one
+// 32-bit modulo).  They are simple first forms: speed is later work.
+
+__host__ __device__ __forceinline__ long long wide_fwd_smem_doubles(
+    int nb, int bs) {
+  return (long long)nb * (bs + 1) + bs * bs + THREADS;
+}
+
+__host__ __device__ __forceinline__ long long wide_bwd_smem_doubles(
+    int nb, int bs) {
+  return (long long)nb * bs + nb;
+}
+
+// one block's opt-in shared memory on an H100 (227 kB)
+#define WIDE_SMEM_BYTES 232448
+
+// log2 of the widest panel (32, 16, 8) at which both wide kernels fit,
+// or -1 where none does
+static int wide_panel_log2(int64_t nb) {
+  if (nb <= 0 || nb > (1 << 20)) return -1;
+  for (int lbs = 5; lbs >= 3; --lbs) {
+    const long long f = wide_fwd_smem_doubles((int)nb, 1 << lbs);
+    const long long b = wide_bwd_smem_doubles((int)nb, 1 << lbs);
+    if (8 * (f > b ? f : b) <= WIDE_SMEM_BYTES) return lbs;
+  }
+  return -1;
+}
+
+__device__ double block_sum(double v, double* red) {
+  // fixed-order sum of one value per thread (THREADS a power of two)
+  const int tid = threadIdx.x;
+  red[tid] = v;
+  __syncthreads();
+  for (int s = THREADS / 2; s > 0; s >>= 1) {
+    if (tid < s) red[tid] = red[tid] + red[tid + s];
+    __syncthreads();
+  }
+  const double out = red[0];
+  __syncthreads();
+  return out;
+}
+
+__global__ void __launch_bounds__(THREADS) kron_pulsar_fwd_wide_kernel(
+    const double* __restrict__ phi, const double* __restrict__ g_uu,
+    const double* __restrict__ g_uf, const double* __restrict__ g_ff,
+    const double* __restrict__ b_u, const double* __restrict__ b_f,
+    const double* __restrict__ rr, const double* __restrict__ ld_white,
+    double* __restrict__ chi2, double* __restrict__ x_out,
+    double* __restrict__ m_out, double* __restrict__ ld_out,
+    double* __restrict__ L_out, double* __restrict__ X_out, int n_psr,
+    int nb, int m2, int lbs) {
+  extern __shared__ double smem[];
+  __shared__ int bad;
+  const int bs = 1 << lbs;
+  const int R = m2 + 1;
+  const int ps = bs + 1;               // odd row stride: no bank conflict
+  double* P = smem;                    // (nb, ps): panel L21 by row
+  double* D = P + (size_t)nb * ps;     // (bs, bs): the diagonal block
+  double* red = D + bs * bs;           // (THREADS): block sums
+  const int blk = blockIdx.x;          // chain * n_psr + pulsar
+  const int p = blk % n_psr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const double* ph = phi + (size_t)blk * nb;
+  const double* G = g_uu + (size_t)p * nb * nb;
+  const double* GF = g_uf + (size_t)p * nb * m2;
+  const double* BU = b_u + (size_t)p * nb;
+  double* A = L_out + (size_t)blk * nb * nb;  // capacity, then L
+  double* Y = X_out + (size_t)blk * nb * R;   // [b_u | g_uf], Z, then X
+  const double nan = __longlong_as_double(0x7ff8000000000000LL);
+
+  if (tid == 0) bad = 0;
+  for (int i = warp; i < nb; i += WARPS) {
+    for (int j = lane; j < nb; j += 32) {
+      double v = 0.0;
+      if (j < i) v = G[(size_t)i * nb + j];
+      else if (j == i) v = G[(size_t)i * nb + i] + 1.0 / floored(ph[i]);
+      A[(size_t)i * nb + j] = v;
+    }
+    for (int c = lane; c < R; c += 32)
+      Y[(size_t)i * R + c] = c == 0 ? BU[i] : GF[(size_t)i * m2 + c - 1];
+  }
+  __syncthreads();
+
+  for (int k0 = 0; k0 < nb; k0 += bs) {
+    const int kb = min(bs, nb - k0);
+    for (int idx = tid; idx < bs * bs; idx += THREADS) {
+      const int i = idx >> lbs, j = idx & (bs - 1);
+      D[idx] = (i < kb && j <= i) ? A[(size_t)(k0 + i) * nb + k0 + j] : 0.0;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      for (int j = 0; j < kb; ++j) {
+        if (lane == j) {
+          const double d = D[j * bs + j];
+          if (!(d > 0.0)) bad = 1;
+          D[j * bs + j] = sqrt(d);
+        }
+        __syncwarp();
+        if (lane > j && lane < kb)
+          D[lane * bs + j] = D[lane * bs + j] / D[j * bs + j];
+        __syncwarp();
+        if (lane > j && lane < kb) {
+          const double lij = D[lane * bs + j];
+          for (int q = j + 1; q <= lane; ++q)
+            D[lane * bs + q] = D[lane * bs + q] - lij * D[q * bs + j];
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < kb * bs; idx += THREADS) {
+      const int i = idx >> lbs, j = idx & (bs - 1);
+      if (j <= i) A[(size_t)(k0 + i) * nb + k0 + j] = D[idx];
+    }
+    for (int i = k0 + kb + tid; i < nb; i += THREADS) {
+      double* a = A + (size_t)i * nb + k0;
+      for (int j = 0; j < kb; ++j) {
+        double v = a[j];
+        for (int q = 0; q < j; ++q)
+          v = v - P[(size_t)i * ps + q] * D[j * bs + q];
+        v = v / D[j * bs + j];
+        P[(size_t)i * ps + j] = v;
+        a[j] = v;
+      }
+    }
+    for (int c = tid; c < R; c += THREADS) {
+      for (int j = 0; j < kb; ++j) {
+        double v = Y[(size_t)(k0 + j) * R + c];
+        for (int q = 0; q < j; ++q)
+          v = v - D[j * bs + q] * Y[(size_t)(k0 + q) * R + c];
+        Y[(size_t)(k0 + j) * R + c] = v / D[j * bs + j];
+      }
+    }
+    __syncthreads();
+    for (int i = k0 + kb + warp; i < nb; i += WARPS) {
+      const double* pi = P + (size_t)i * ps;
+      for (int j = k0 + kb + lane; j <= i; j += 32) {
+        const double* pj = P + (size_t)j * ps;
+        double s = 0.0;
+        for (int q = 0; q < kb; ++q) s = s + pi[q] * pj[q];
+        A[(size_t)i * nb + j] = A[(size_t)i * nb + j] - s;
+      }
+      for (int c = lane; c < R; c += 32) {
+        double s = 0.0;
+        for (int q = 0; q < kb; ++q)
+          s = s + pi[q] * Y[(size_t)(k0 + q) * R + c];
+        Y[(size_t)i * R + c] = Y[(size_t)i * R + c] - s;
+      }
+    }
+    __syncthreads();
+  }
+
+  // G = Z^T Z: chi2 = rr - G_00, x = b_f - G_0f, M = g_ff - G_ff
+  const double* FF = g_ff + (size_t)p * m2 * m2;
+  const double* BF = b_f + (size_t)p * m2;
+  for (int i = warp; i < R; i += WARPS) {
+    for (int j = i + lane; j < R; j += 32) {
+      double s = 0.0;
+      for (int k = 0; k < nb; ++k)
+        s = s + Y[(size_t)k * R + i] * Y[(size_t)k * R + j];
+      if (bad) s = nan;
+      if (j == 0) {
+        chi2[blk] = rr[p] - s;
+      } else if (i == 0) {
+        x_out[(size_t)blk * m2 + j - 1] = BF[j - 1] - s;
+      } else {
+        const double v = FF[(size_t)(i - 1) * m2 + j - 1] - s;
+        m_out[((size_t)blk * m2 + i - 1) * m2 + j - 1] = v;
+        m_out[((size_t)blk * m2 + j - 1) * m2 + i - 1] = v;
+      }
+    }
+  }
+  double s1 = 0.0, s2 = 0.0;
+  for (int k = tid; k < nb; k += THREADS) {
+    s1 = s1 + log(floored(ph[k]));
+    s2 = s2 + log(A[(size_t)k * nb + k]);
+  }
+  s1 = block_sum(s1, red);
+  s2 = block_sum(s2, red);
+  if (tid == 0) ld_out[blk] = bad ? nan : ld_white[p] + s1 + 2.0 * s2;
+
+  // back substitution L^T X = Z, panels from the last
+  for (int k0 = ((nb - 1) >> lbs) << lbs; k0 >= 0; k0 -= bs) {
+    const int kb = min(bs, nb - k0);
+    for (int idx = tid; idx < bs * bs; idx += THREADS) {
+      const int i = idx >> lbs, j = idx & (bs - 1);
+      D[idx] = (i < kb && j <= i) ? A[(size_t)(k0 + i) * nb + k0 + j] : 0.0;
+    }
+    __syncthreads();
+    for (int c = tid; c < R; c += THREADS) {
+      for (int j = kb - 1; j >= 0; --j) {
+        double v = Y[(size_t)(k0 + j) * R + c];
+        for (int q = j + 1; q < kb; ++q)
+          v = v - D[q * bs + j] * Y[(size_t)(k0 + q) * R + c];
+        Y[(size_t)(k0 + j) * R + c] = v / D[j * bs + j];
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < k0; r += WARPS) {
+      for (int c = lane; c < R; c += 32) {
+        double s = 0.0;
+        for (int j = 0; j < kb; ++j)
+          s = s + A[(size_t)(k0 + j) * nb + r] * Y[(size_t)(k0 + j) * R + c];
+        Y[(size_t)r * R + c] = Y[(size_t)r * R + c] - s;
+      }
+    }
+    __syncthreads();
+  }
+  if (bad) {
+    for (int i = warp; i < nb; i += WARPS) {
+      for (int j = lane; j < nb; j += 32) A[(size_t)i * nb + j] = nan;
+      for (int c = lane; c < R; c += 32) Y[(size_t)i * R + c] = nan;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) kron_pulsar_bwd_wide_kernel(
+    const double* __restrict__ phi, const double* __restrict__ L,
+    const double* __restrict__ X, const double* __restrict__ gchi,
+    const double* __restrict__ gx, const double* __restrict__ gm,
+    const double* __restrict__ gld, double* __restrict__ gphi, int nb,
+    int m2, int lbs) {
+  extern __shared__ double smem[];
+  const int bs = 1 << lbs;
+  const int R = m2 + 1;
+  double* Wp = smem;                   // (nb, bs): a column panel of L^-1
+  double* dk = Wp + (size_t)nb * bs;   // (nb): diag(cap^-1)
+  const int blk = blockIdx.x, tid = threadIdx.x;
+  const double* Lb = L + (size_t)blk * nb * nb;
+  const double* Xb = X + (size_t)blk * nb * R;
+  const double* gmb = gm + (size_t)blk * m2 * m2;
+  const double* gxb = gx + (size_t)blk * m2;
+  const int col = tid & (bs - 1), row = tid >> lbs, step = THREADS >> lbs;
+
+  for (int k0 = 0; k0 < nb; k0 += bs) {
+    const int kc = min(bs, nb - k0);
+    for (int i = k0 + row; i < nb; i += step)
+      Wp[(size_t)i * bs + col] = (i == k0 + col) ? 1.0 : 0.0;
+    __syncthreads();
+    for (int rb = k0; rb < nb; rb += bs) {
+      const int kr = min(bs, nb - rb);
+      if (tid < kc) {
+        for (int i = rb; i < rb + kr; ++i) {
+          const double* li = Lb + (size_t)i * nb;
+          double w = Wp[(size_t)i * bs + tid];
+          for (int q = rb; q < i; ++q) w = w - li[q] * Wp[(size_t)q * bs + tid];
+          Wp[(size_t)i * bs + tid] = w / li[i];
+        }
+      }
+      __syncthreads();
+      for (int k = rb + kr + row; k < nb; k += step) {
+        const double* lk = Lb + (size_t)k * nb;
+        double s = 0.0;
+        for (int q = rb; q < rb + kr; ++q)
+          s = s + lk[q] * Wp[(size_t)q * bs + col];
+        Wp[(size_t)k * bs + col] = Wp[(size_t)k * bs + col] - s;
+      }
+      __syncthreads();
+    }
+    if (tid < kc) {
+      double s = 0.0;
+      for (int i = k0 + tid; i < nb; ++i)
+        s = s + Wp[(size_t)i * bs + tid] * Wp[(size_t)i * bs + tid];
+      dk[k0 + tid] = s;
+    }
+    __syncthreads();
+  }
+  const double gc = gchi[blk];
+  const double gl = gld[blk];
+  for (int k = tid; k < nb; k += THREADS) {
+    const double v = phi[(size_t)blk * nb + k];
+    if (!(v >= PHI_FLOOR)) {
+      gphi[(size_t)blk * nb + k] = 0.0;
+      continue;
+    }
+    const double* xk = Xb + (size_t)k * R;
+    const double xu = xk[0];
+    double q = 0.0, s = 0.0;
+    for (int i = 0; i < m2; ++i) q += gxb[i] * xk[1 + i];
+    for (int i = 0; i < m2; ++i) {
+      double t = 0.0;
+      for (int j = 0; j < m2; ++j) t += gmb[i * m2 + j] * xk[1 + j];
+      s += xk[1 + i] * t;
+    }
+    const double br = gc * (xu * xu) + xu * q + s + gl * dk[k];
+    gphi[(size_t)blk * nb + k] = gl / v - br / (v * v);
+  }
+}
+
 static int smem_limit(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -541,4 +864,46 @@ extern "C" int kron_pulsar_fwd_occupancy(int64_t nb, int64_t m2) {
   err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &n, kron_pulsar_fwd_kernel, THREADS, bytes);
   return err ? -err : n;
+}
+
+extern "C" int kron_pulsar_fwd_wide_launch(
+    const double* phi, const double* g_uu, const double* g_uf,
+    const double* g_ff, const double* b_u, const double* b_f,
+    const double* rr, const double* ld_white, double* chi2, double* x_out,
+    double* m_out, double* ld_out, double* L_out, double* X_out,
+    int64_t n_blocks, int64_t n_psr, int64_t nb, int64_t m2,
+    cudaStream_t stream) {
+  const int lbs = wide_panel_log2(nb);
+  if (lbs < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      sizeof(double) * wide_fwd_smem_doubles((int)nb, 1 << lbs);
+  int err = smem_limit((const void*)kron_pulsar_fwd_wide_kernel, bytes);
+  if (err) return err;
+  kron_pulsar_fwd_wide_kernel<<<(unsigned)n_blocks, THREADS, bytes,
+                                stream>>>(
+      phi, g_uu, g_uf, g_ff, b_u, b_f, rr, ld_white, chi2, x_out, m_out,
+      ld_out, L_out, X_out, (int)n_psr, (int)nb, (int)m2, lbs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int kron_pulsar_bwd_wide_launch(
+    const double* phi, const double* L, const double* X, const double* gchi,
+    const double* gx, const double* gm, const double* gld, double* gphi,
+    int64_t n_blocks, int64_t nb, int64_t m2, cudaStream_t stream) {
+  const int lbs = wide_panel_log2(nb);
+  if (lbs < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes =
+      sizeof(double) * wide_bwd_smem_doubles((int)nb, 1 << lbs);
+  int err = smem_limit((const void*)kron_pulsar_bwd_wide_kernel, bytes);
+  if (err) return err;
+  kron_pulsar_bwd_wide_kernel<<<(unsigned)n_blocks, THREADS, bytes,
+                                stream>>>(
+      phi, L, X, gchi, gx, gm, gld, gphi, (int)nb, (int)m2, lbs);
+  return (int)cudaGetLastError();
+}
+
+// the wide forms' panel width at nb (0: too wide for either)
+extern "C" int kron_pulsar_wide_panel(int64_t nb) {
+  const int lbs = wide_panel_log2(nb);
+  return lbs < 0 ? 0 : 1 << lbs;
 }

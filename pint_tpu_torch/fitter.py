@@ -1,17 +1,22 @@
-"""GLS Gauss-Newton fitter (pint_tpu fitter.py: ``resid_and_design``,
-``GLSFitter`` at its baseline rung).
+"""Gauss-Newton fitters (pint_tpu fitter.py: ``resid_and_design``,
+``wls_gn_solve``, the ``Fitter`` base, ``WLSFitter`` and ``GLSFitter``
+at their baseline rung).
 
 Each iteration builds the hybrid design matrix — closed-form columns
 for the phase-linear parameters, ``torch.func.jacfwd`` over the
 nonlinear rest (it composes through the ``autograd.Function``s around
-kernel K1 and the Kepler solve) — and solves the noise-augmented normal
-equations.  With no free noise parameter, sigma, phi and the (K, K)
-noise gram are constants of the fit, built once; the delays of frozen
-components are computed once too.
+kernel K1 and the Kepler solve) — and solves for the step:
+:class:`GLSFitter` through the noise-augmented normal equations,
+:class:`WLSFitter` through the SVD of the whitened, column-normalized
+design (whitening by kernel K7 on CUDA).  With no free noise parameter,
+sigma (and for GLS phi and the (K, K) noise gram) are constants of the
+fit, built once; the delays of frozen components are computed once too.
 
-Not ported: the guard's degradation ladder.  A non-finite chi^2 raises
-:class:`FitDivergedError`, and ``model.values`` is never written with
-non-finite results.
+The fitters take a :class:`~pint_tpu_torch.toa.TOATable` with its TZR
+table, or ingest :class:`~pint_tpu_torch.toa.TOAs` (the TZR TOA then
+comes from the model).  Not ported: the guard's degradation ladder.  A
+non-finite chi^2 raises :class:`FitDivergedError`, and ``model.values``
+is never written with non-finite results.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.linalg import gls_normal_solve, noise_gram_precompute
+from pint_tpu_torch.linalg import (SolveDiag, gls_normal_solve,
+                                   noise_gram_precompute, wls_whiten)
 from pint_tpu_torch.residuals import Residuals
 
 
@@ -66,17 +72,48 @@ def resid_and_design(free, vec, partition, resid_of, linear_of):
         .contiguous()
 
 
-class GLSFitter:
-    """Generalized least squares over the low-rank noise basis.
+#: singular values at or below this times the largest are dropped from the
+#: WLS step (pint_tpu fitter.py:124's default)
+WLS_SVD_THRESHOLD = 1e-14
 
-    ``GLSFitter(toas, model, tzr, device=None).fit_toas(maxiter=3)``
-    runs on CUDA unless ``device`` names another device."""
+
+def wls_gn_solve(r, J, err):
+    """One whitened, column-normalized SVD Gauss-Newton step (pint_tpu
+    fitter.py:124, guard off).  Returns (dpar, chi2 at the input, cov,
+    SolveDiag): singular values at or below ``WLS_SVD_THRESHOLD`` times
+    the largest are dropped, and the diagnostics count them
+    (``n_truncated``) and give log10 of the largest over the smallest
+    kept (``cond_log10``).  The whitening pass is kernel K7 on CUDA;
+    the SVD is ``torch.linalg.svd``."""
+    rw, Jn, norms, chi2 = wls_whiten(r, J, err)
+    U, s, Vt = torch.linalg.svd(Jn, full_matrices=False)
+    smax = torch.max(s)
+    keep = s > WLS_SVD_THRESHOLD * smax
+    s_inv = torch.where(keep, 1.0 / s, torch.zeros_like(s))
+    dpar = -((Vt.T * s_inv[None, :]) @ (U.T @ rw)) / norms
+    cov = ((Vt.T * s_inv[None, :] ** 2) @ Vt) / torch.outer(norms, norms)
+    kept_min = torch.min(torch.where(keep, s, smax))
+    diag = SolveDiag(
+        n_truncated=torch.sum(~keep).to(torch.int32),
+        cond_log10=torch.log10(smax / torch.clamp(kept_min, min=1e-300)))
+    return dpar, chi2, cov, diag
+
+
+class Fitter:
+    """The Gauss-Newton loop shared by the fitters: ``Fitter(toas,
+    model, tzr=None, device=None).fit_toas(maxiter=3)`` runs on CUDA
+    unless ``device`` names another device.  Subclasses define
+    ``_step``."""
+
+    #: whether the step reads the frozen-noise (phi, gram) leaves; every
+    #: step reads sigma
+    _noise_gram_leaves = False
 
     def __init__(self, toas, model, tzr=None, device=None):
         self.device = resolve_device(device)
-        self.toas = toas
         self.model = model
         self.resids = Residuals(toas, model, tzr=tzr, device=self.device)
+        self.toas = self.resids.toas
         self.prepared = self.resids.prepared
         self.covariance: Optional[np.ndarray] = None
         self.chi2_iters: list = []
@@ -130,10 +167,13 @@ class GLSFitter:
             self._fit_data = self._partition_setup()
 
     def _noise_leaves(self):
-        """sigma, phi and the (K, K) noise gram at the current values."""
+        """sigma (and for GLS phi and the (K, K) noise gram) at the
+        current values."""
         with torch.no_grad():
             base = self.prepared.values_dict()
             sigma = self.resids.sigma_at(base)
+            if not self._noise_gram_leaves:
+                return {"noise_sigma": sigma}
             U, phi = self.resids._noise_basis_phi_at(base)
             return {"noise_sigma": sigma, "noise_phi": phi,
                     "noise_gram": noise_gram_precompute(sigma, U, phi)}
@@ -160,22 +200,6 @@ class GLSFitter:
         return resid_and_design(self._traced_free, vec, self._partition,
                                 resid_of, linear_of)
 
-    def _step(self, vec, base_values, data):
-        """(new vec, chi2 at vec, dpar, cov, noise coeffs, SolveDiag)."""
-        values = self._merged(base_values, vec)
-        if self._noise_frozen:
-            sigma = data["noise_sigma"]
-            U, phi = self.resids._U_ext, data["noise_phi"]
-            gram = data["noise_gram"]
-        else:
-            sigma = self.resids.sigma_at(values)
-            U, phi = self.resids._noise_basis_phi_at(values)
-            gram = None
-        r, J = self._rj(vec, base_values, data)
-        dpar, cov, ncoef, chi2, diag = gls_normal_solve(
-            r, J, sigma, U, phi, gram=gram, with_health=True)
-        return vec + dpar, chi2, dpar, cov, ncoef, diag
-
     def _iterate(self, maxiter):
         vec = torch.tensor([self.model.values[k] for k in self._traced_free],
                            dtype=torch.float64, device=self.device)
@@ -185,8 +209,8 @@ class GLSFitter:
         diag = None
         self.chi2_iters = []
         for _ in range(maxiter):
-            vec_new, chi2, _dpar, cov, _ncoef, diag = self._step(
-                vec, base, self._fit_data)
+            dpar, chi2, cov, diag = self._step(vec, base, self._fit_data)
+            vec_new = vec + dpar
             chi2_f = float(chi2)
             if not np.isfinite(chi2_f):
                 raise FitDivergedError(
@@ -241,3 +265,40 @@ class GLSFitter:
             return False
         self._retrace()
         return True
+
+
+class WLSFitter(Fitter):
+    """Weighted least squares: the SVD of the whitened, column-normalized
+    design matrix (pint_tpu fitter.py:1620), whitened by the
+    noise-scaled uncertainties (EFAC/EQUAD)."""
+
+    def _step(self, vec, base_values, data):
+        """(dpar, chi2 at vec, cov, SolveDiag)."""
+        if self._noise_frozen:
+            sigma = data["noise_sigma"]
+        else:
+            sigma = self.resids.sigma_at(self._merged(base_values, vec))
+        r, J = self._rj(vec, base_values, data)
+        return wls_gn_solve(r, J, sigma)
+
+
+class GLSFitter(Fitter):
+    """Generalized least squares over the low-rank noise basis."""
+
+    _noise_gram_leaves = True
+
+    def _step(self, vec, base_values, data):
+        """(dpar, chi2 at vec, cov, SolveDiag)."""
+        values = self._merged(base_values, vec)
+        if self._noise_frozen:
+            sigma = data["noise_sigma"]
+            U, phi = self.resids._U_ext, data["noise_phi"]
+            gram = data["noise_gram"]
+        else:
+            sigma = self.resids.sigma_at(values)
+            U, phi = self.resids._noise_basis_phi_at(values)
+            gram = None
+        r, J = self._rj(vec, base_values, data)
+        dpar, cov, _ncoef, chi2, diag = gls_normal_solve(
+            r, J, sigma, U, phi, gram=gram, with_health=True)
+        return dpar, chi2, cov, diag

@@ -590,8 +590,17 @@ K5B = CudaKernel(
     "kron_pulsar_bwd", "kron_pulsar.cu", "kron_pulsar_bwd_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
 
-#: the widest (nb, m2) K5 and K5b take: a block's shared memory must fit
-#: the H100's 227 kB
+#: the wide forms of K5 and K5b (global-memory capacity, column panels
+#: in shared memory), for pulsars too wide for the two above
+K5W = CudaKernel(
+    "kron_pulsar_fwd_wide", "kron_pulsar.cu", "kron_pulsar_fwd_wide_launch",
+    [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4)
+K5BW = CudaKernel(
+    "kron_pulsar_bwd_wide", "kron_pulsar.cu", "kron_pulsar_bwd_wide_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
+
+#: one block's shared memory on an H100 (227 kB): the widest (nb, m2) the
+#: narrow K5 and K5b take
 K5_SHARED_BYTES = 232448
 
 
@@ -654,14 +663,30 @@ def k5_shared_bytes(nb, m2):
 
 
 def _k5_shape(nb, m2):
-    if max(k5_shared_bytes(nb, m2)) > K5_SHARED_BYTES:
+    """(forward form, backward form) at (nb, m2): the narrow form where
+    its block's shared memory holds the capacity, else the wide form."""
+    return tuple("narrow" if b <= K5_SHARED_BYTES else "wide"
+                 for b in k5_shared_bytes(nb, m2))
+
+
+def k5_wide_panel(nb):
+    """The wide forms' panel width at nb, from the kernels' library (it
+    builds the library): 32, 16 or 8, the widest whose shared memory
+    fits; 0 where nb is too wide for them."""
+    return K5W.call("kron_pulsar_wide_panel", nb)
+
+
+def _check_wide(nb, m2):
+    if not k5_wide_panel(nb):
         raise ValueError(f"K5/K5b: nb = {nb}, m2 = {m2} does not fit one "
-                         f"block's shared memory ({K5_SHARED_BYTES} B)")
+                         "block's shared memory in either form")
 
 
 def kron_pulsar_cuda(pre: KronGram, phi):
     """Kernel K5 on CUDA tensors, phi (B, P, nb); the same outputs as
-    :func:`kron_pulsar_plain`.  Raises on what it does not take."""
+    :func:`kron_pulsar_plain`.  The narrow form where one block's shared
+    memory holds the capacity, the wide form K5w beyond; raises on what
+    neither takes."""
     grams = tuple(t.contiguous() for t in pre)
     dev = _check_cuda("kron_pulsar_cuda", (phi,) + grams)
     b, p, nb = phi.shape
@@ -669,7 +694,9 @@ def kron_pulsar_cuda(pre: KronGram, phi):
     if pre.g_uu.shape != (p, nb, nb) or pre.g_uf.shape != (p, nb, m2):
         raise ValueError("kron_pulsar_cuda: phi (B, P, nb) against grams "
                          "g_uu (P, nb, nb), g_uf (P, nb, m2)")
-    _k5_shape(nb, m2)
+    form, _ = _k5_shape(nb, m2)
+    if form == "wide":
+        _check_wide(nb, m2)
     phi = phi.contiguous()
     f64 = dict(dtype=torch.float64, device=dev)
     chi2 = torch.empty((b, p), **f64)
@@ -678,16 +705,21 @@ def kron_pulsar_cuda(pre: KronGram, phi):
     ld = torch.empty((b, p), **f64)
     L = torch.empty((b, p, nb, nb), **f64)
     X = torch.empty((b, p, nb, 1 + m2), **f64)
-    if b * p:
-        K5.launch(dev, phi.data_ptr(), *(t.data_ptr() for t in grams),
-                  chi2.data_ptr(), x.data_ptr(), m.data_ptr(), ld.data_ptr(),
-                  L.data_ptr(), X.data_ptr(), b * p, p, nb, m2)
+    args = (phi.data_ptr(), *(t.data_ptr() for t in grams),
+            chi2.data_ptr(), x.data_ptr(), m.data_ptr(), ld.data_ptr(),
+            L.data_ptr(), X.data_ptr(), b * p, p, nb, m2)
+    if b * p and form == "narrow":
+        K5.launch(dev, *args)
+    elif b * p:  # L and X are the wide form's working storage
+        K5W.launch(dev, *args)
     return chi2, x, m, ld, L, X
 
 
 def kron_pulsar_bwd_cuda(phi, L, X, gchi, gx, gm, gld):
     """Kernel K5b on CUDA tensors (the shapes of
-    :func:`kron_pulsar_cuda`'s inputs and outputs)."""
+    :func:`kron_pulsar_cuda`'s inputs and outputs): the narrow form, or
+    the wide form K5bw where the narrow one's shared memory does not
+    hold L^-1."""
     ts = tuple(t.contiguous() for t in (phi, L, X, gchi, gx, gm, gld))
     dev = _check_cuda("kron_pulsar_bwd_cuda", ts)
     b, p, nb = phi.shape
@@ -697,11 +729,15 @@ def kron_pulsar_bwd_cuda(phi, L, X, gchi, gx, gm, gld):
             or gld.shape != (b, p):
         raise ValueError("kron_pulsar_bwd_cuda: shapes do not match phi "
                          "(B, P, nb)")
-    _k5_shape(nb, m2)
+    _, form = _k5_shape(nb, m2)
+    if form == "wide":
+        _check_wide(nb, m2)
     gphi = torch.empty_like(ts[0])
-    if b * p:
-        K5B.launch(dev, *(t.data_ptr() for t in ts), gphi.data_ptr(), b * p,
-                   nb, m2)
+    args = (*(t.data_ptr() for t in ts), gphi.data_ptr(), b * p, nb, m2)
+    if b * p and form == "narrow":
+        K5B.launch(dev, *args)
+    elif b * p:
+        K5BW.launch(dev, *args)
     return gphi
 
 
@@ -817,3 +853,63 @@ def kron_chi2_logdet(st: RaggedStack, kp: KronPhi):
 
     over a ragged stack (pint_tpu linalg.py:738)."""
     return kron_chi2_logdet_pre(kron_gram_precompute(st), kp)
+
+
+# --------------------------------------------------------------------------
+# the WLS whitening pass (kernel K7 and its plain version)
+# --------------------------------------------------------------------------
+
+#: kernel K7 (replaces pint_tpu fitter.py:152-158 inside wls_gn_solve)
+K7 = CudaKernel(
+    "wls_whiten", "wls_whiten.cu", "wls_whiten_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2)
+
+#: the widest design K7 takes: its second pass holds P + 1 column sums
+#: in shared memory, under the 48 kB a launch gets without opting in
+K7_MAX_COLS = 4096
+
+
+def wls_whiten_plain(r, J, err):
+    """(rw, Jn, norms, chi2) of the WLS step, the JAX package's lines in
+    plain PyTorch: w = 1/err, rw = r w, Jn = (J w) / norms with the
+    column norms' zeros replaced by 1, chi2 = sum rw^2."""
+    w = 1.0 / err
+    rw = r * w
+    Jw = J * w[:, None]
+    norms = torch.sqrt(torch.sum(Jw * Jw, dim=0))
+    norms = torch.where(norms == 0, torch.ones_like(norms), norms)
+    return rw, Jw / norms[None, :], norms, torch.sum(rw * rw)
+
+
+def wls_whiten_cuda(r, J, err):
+    """Kernel K7 on CUDA tensors; the outputs of
+    :func:`wls_whiten_plain`, the column sums in a fixed order."""
+    ts = tuple(t.contiguous() for t in (r, J, err))
+    dev = _check_cuda("wls_whiten_cuda", ts)
+    r, J, err = ts
+    n, p = J.shape
+    if r.shape != (n,) or err.shape != (n,) or n == 0:
+        raise ValueError("wls_whiten_cuda: r (N,), J (N, P), err (N,) "
+                         "with N > 0")
+    if p > K7_MAX_COLS:
+        raise ValueError(f"wls_whiten_cuda: P = {p} > {K7_MAX_COLS}")
+    f64 = dict(dtype=torch.float64, device=dev)
+    partial = torch.empty((K7.call("wls_whiten_splits", n), p + 1), **f64)
+    rw = torch.empty((n,), **f64)
+    Jn = torch.empty((n, p), **f64)
+    norms = torch.empty((p,), **f64)
+    chi2 = torch.empty((1,), **f64)
+    K7.launch(dev, r.data_ptr(), J.data_ptr(), err.data_ptr(),
+              partial.data_ptr(), rw.data_ptr(), Jn.data_ptr(),
+              norms.data_ptr(), chi2.data_ptr(), n, p)
+    return rw, Jn, norms, chi2[0]
+
+
+def wls_whiten(r, J, err):
+    """The whitening pass: K7 for CUDA tensors, the plain version for
+    CPU tensors."""
+    if r.device.type == "cuda":
+        return wls_whiten_cuda(r, J, err)
+    if r.device.type == "cpu":
+        return wls_whiten_plain(r, J, err)
+    raise ValueError(f"wls_whiten: no version for {r.device}")

@@ -46,6 +46,10 @@ class TimingModel:
         self.epoch_ticks: Dict[str, int] = dict(epoch_ticks or {})
         self.free_params: List[str] = list(free_params)
         self.uncertainties: Dict[str, float] = {}
+        #: par metadata (PSR, EPHEM, CLK, UNITS, TZRSITE, ...)
+        self.meta: Dict[str, str] = {}
+        #: {name: Param} when built from a par file (models.builder)
+        self.params: Dict[str, object] = {}
 
     def component(self, name) -> Component:
         for c in self.components:
@@ -82,11 +86,31 @@ class TimingModel:
         noise = set(self.free_noise_params)
         return [p for p in self.free_params if p not in noise]
 
+    def has_component(self, name) -> bool:
+        return any(type(c).__name__ == name for c in self.components)
+
     def prepare(self, toas, tzr=None, device=None) -> "PreparedModel":
         """Bind to ``toas`` (and the one-row TZR table ``tzr``, or None
         for no absolute-phase reference) on ``device`` (CUDA unless
-        given)."""
+        given).  ``toas`` may be a :class:`~pint_tpu_torch.toa.TOAs`
+        from ingest: with ``tzr`` None its TZR TOA is then built from
+        the model's TZRMJD/TZRSITE/TZRFRQ, as the JAX package does."""
+        toas, tzr = self.tables(toas, tzr)
         return PreparedModel(self, toas, tzr, resolve_device(device))
+
+    def tables(self, toas, tzr=None):
+        """(TOATable, TZR TOATable or None) for ``toas`` and ``tzr``:
+        ingest TOAs become tables, and their TZR TOA comes from the
+        AbsPhase component when ``tzr`` is None."""
+        from pint_tpu_torch.toa import TOAs
+
+        if isinstance(toas, TOAs):
+            if tzr is None and self.has_component("AbsPhase"):
+                tzr = self.component("AbsPhase").make_tzr_toas(self, toas)
+            toas = toas.to_table()
+        if isinstance(tzr, TOAs):
+            tzr = tzr.to_table()
+        return toas, tzr
 
 
 class PreparedModel:

@@ -29,13 +29,19 @@ def weighted_mean_phase(frac, weights):
 
 class Residuals:
     """Residuals bound to (toas, model) on ``device`` (CUDA unless
-    given).  ``tzr`` is the one-row TZR table, or None."""
+    given).  ``tzr`` is the one-row TZR table, or None; ingest
+    :class:`~pint_tpu_torch.toa.TOAs` bring their own (see
+    ``TimingModel.tables``).  ``subtract_mean=False`` keeps the weighted
+    mean in (the simulation's phase inversion)."""
 
-    def __init__(self, toas, model, tzr=None, device=None):
+    def __init__(self, toas, model, tzr=None, device=None,
+                 subtract_mean=True):
+        toas, tzr = model.tables(toas, tzr)
         self.toas = toas
         self.device = resolve_device(device)
         self.prepared = model.prepare(toas, tzr=tzr, device=self.device)
         self.model = model
+        self.subtract_mean = subtract_mean
         self._U_ext = self._build_structured_U()
 
     def _build_structured_U(self) -> StructuredU:
@@ -84,6 +90,8 @@ class Residuals:
         _, frac = prep._phase_raw_at(
             values, prep.batch, prep.ctx, prep.tzr_batch, prep.tzr_ctx,
             frozen=data.get("frozen"), tzr_frozen=data.get("tzr_frozen"))
+        if not self.subtract_mean:
+            return frac
         w = 1.0 / self.sigma_at(values) ** 2
         return frac - weighted_mean_phase(frac, w)
 

@@ -25,6 +25,13 @@ CHI2_REL = 1e-8
 UNC_REL = 1e-8
 #: prefit time residuals [s]
 PREFIT_S = 1e-11
+#: ingest on another host: the observatory and solar-system geometry
+#: (light-seconds, ls/s) as :func:`vector_rel`.  On one host the port's
+#: numpy repeats the JAX package's arithmetic bit for bit; another
+#: host's libm may round sin/cos/exp differently by an ulp, which the
+#: Chebyshev and rotation chains carry to ~10 ulp of the largest
+#: coordinate.  Ticks, frequencies, errors and flags are exact always.
+INGEST_GEOMETRY_REL = 1e-14
 
 _EPS = float(np.finfo(np.float64).eps)
 
@@ -41,6 +48,15 @@ def fit_tolerances(cond_log10: float) -> dict:
     return {"values_sigma": max(VALUES_SIGMA, s),
             "chi2_rel": max(CHI2_REL, s),
             "unc_rel": max(UNC_REL, s)}
+
+
+def wls_normal_cond_log10(svd_cond_log10: float) -> float:
+    """log10 of the normal matrix's kappa for a WLS step whose SVD
+    reported ``svd_cond_log10``: the WLS fit solves the same normal
+    equations J^T W J through the SVD of the whitened J, whose singular
+    values are the square roots of that matrix's eigenvalues, and the
+    Gauss-Newton iterate moves with them as the GLS one does."""
+    return 2.0 * float(svd_cond_log10)
 
 
 def fit_errors(values, uncs, chi2_iters, ref_values, ref_uncs,
@@ -98,6 +114,12 @@ HMC_GRAD_REL = 1e-10
 #: there, so the forward errors are ~eps * kappa <= 7e-12 of each
 #: output's scale.  The ceiling is the reference's 1e-10 kron pin.
 KRON_PULSAR_REL = 1e-10
+#: K7 against its plain version on the card: Jn, the column norms and
+#: chi2 as :func:`vector_rel` (rw is bit-identical).  The two sum the
+#: same non-negative squares in different orders; K7's longest chain is
+#: ~ N / 256 + 8 + splits additions (~60 at N = 10^4) and torch.sum's is
+#: pairwise, so both are within ~60 eps of the exact sum.
+WLS_WHITEN_REL = 1e-13
 #: K6 against its plain version on the card: positions, momenta and
 #: step sizes, in units in the last place (the two use the same
 #: association and order; only the math library's exp / log may differ)

@@ -1,4 +1,4 @@
-"""Kernels K1-K6 on the card against their plain PyTorch versions.
+"""Kernels K1-K7 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -231,6 +231,134 @@ def test_k5_failed_pivot_is_nan(card):
         assert torch.all(torch.isnan(x[:, 1]))
         assert torch.all(torch.isfinite(x[:, [0, 2]]))
         assert torch.all(torch.isnan(y[:, 1]))
+
+
+@pytest.mark.parametrize("nb", [145, 203, 470])
+def test_k5_k5b_wide_against_plain_and_deterministic(card, nb):
+    """The wide forms K5w/K5bw, taken where the narrow forms' shared
+    memory does not hold the capacity (145: K5w with the narrow K5b; 203
+    and 470: both wide; 470 is a pulsar of 400 ECORR epochs and 30
+    red-noise modes), against the plain versions, bit-identical run to
+    run, L's upper triangle zero, M exactly symmetric, a zero weight
+    pinned with no gradient."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    m2, p, c = 28, 4, 3
+    fwd, bwd = tl._k5_shape(nb, m2)
+    pre = _grams(card, nb, p, nb, m2, n=nb + 100)
+    rng = np.random.default_rng(4)
+    phi_np = 10.0 ** rng.uniform(-16, -12, (c, p, nb))
+    phi_np[:, 0, -3:] = 0.0
+    phi = torch.tensor(phi_np, device=card)
+    n5, n5w = tl.K5.launches, tl.K5W.launches
+    a = tl.kron_pulsar_cuda(pre, phi)
+    b = tl.kron_pulsar_cuda(pre, phi)
+    assert fwd == "wide" and tl.K5W.launches == n5w + 2 \
+        and tl.K5.launches == n5
+    pl = tl.kron_pulsar_plain(pre, phi)
+    for x, y, q in zip(a, b, pl):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+        assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
+            <= tol.KRON_PULSAR_REL
+    assert torch.equal(a[2], a[2].transpose(-1, -2))
+    assert torch.all(torch.triu(a[4], diagonal=1) == 0)
+    cots = [torch.tensor(rng.standard_normal(t.shape), device=card)
+            for t in a[:4]]
+    nbw = tl.K5BW.launches
+    g1 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    g2 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    assert tl.K5BW.launches == nbw + (2 if bwd == "wide" else 0)
+    gp = tl.kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
+    assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
+    assert tol.vector_rel(g1.cpu().numpy(), gp.cpu().numpy()) \
+        <= tol.KRON_PULSAR_REL
+    assert torch.all(g1[:, 0, -3:] == 0)
+
+
+def test_k5_wide_failed_pivot_is_nan(card):
+    """A capacity that is not positive definite turns every output of
+    its K5w block NaN, L included; the other blocks are untouched."""
+    from pint_tpu_torch import linalg as tl
+
+    pre = _grams(card, 3, 3, 203, 28, n=300)
+    g_uu = pre.g_uu.clone()
+    g_uu[1] = -1e30 * torch.eye(203, device=card, dtype=torch.float64)
+    pre = pre._replace(g_uu=g_uu)
+    phi = torch.full((2, 3, 203), 1e-14, device=card, dtype=torch.float64)
+    out = tl.kron_pulsar_cuda(pre, phi)
+    ref = tl.kron_pulsar_plain(pre, phi)
+    for x, y in zip(out, ref):
+        assert torch.all(torch.isnan(x[:, 1]))
+        assert torch.all(torch.isfinite(x[:, [0, 2]]))
+        assert torch.all(torch.isnan(y[:, 1]))
+
+
+def test_k5_wide_panel_and_width_limit(card):
+    """The library chooses the wide forms' panel (the widest of 32, 16,
+    8 columns whose shared memory fits) and refuses a pulsar too wide
+    for it: the launchers raise before any launch."""
+    from pint_tpu_torch import linalg as tl
+
+    assert [tl.k5_wide_panel(nb) for nb in (145, 470, 1500, 3000, 4000)] \
+        == [32, 32, 16, 8, 0]
+    nb, m2 = 4000, 2
+    z = torch.zeros(1, device=card, dtype=torch.float64)
+    pre = tl.KronGram(
+        torch.zeros((1, nb, nb), device=card, dtype=torch.float64),
+        torch.zeros((1, nb, m2), device=card, dtype=torch.float64),
+        torch.zeros((1, m2, m2), device=card, dtype=torch.float64),
+        torch.zeros((1, nb), device=card, dtype=torch.float64),
+        torch.zeros((1, m2), device=card, dtype=torch.float64), z, z)
+    phi = torch.ones((1, 1, nb), device=card, dtype=torch.float64)
+    n5w = tl.K5W.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tl.kron_pulsar_cuda(pre, phi)
+    assert tl.K5W.launches == n5w
+
+
+@pytest.mark.parametrize("n,p", [(10000, 11), (300, 3), (70000, 17)])
+def test_k7_against_plain_and_deterministic(card, n, p):
+    """K7 against wls_whiten_plain: rw bit-identical, Jn, the norms and
+    chi2 within 1e-13 (summation order only), a zero column's norm 1,
+    bit-identical run to run."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    rng = np.random.default_rng(n + p)
+    r = torch.tensor(rng.standard_normal(n) * 1e-6, device=card)
+    J = torch.tensor(rng.standard_normal((n, p)) * 10.0 ** rng.uniform(
+        -8, 8, p), device=card)
+    J[:, -1] = 0.0
+    err = torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device=card)
+    k0 = tl.K7.launches
+    a = tl.wls_whiten_cuda(r, J, err)
+    b = tl.wls_whiten_cuda(r, J, err)
+    assert tl.K7.launches == k0 + 2
+    pl = tl.wls_whiten_plain(r, J, err)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+    assert torch.equal(a[0], pl[0])
+    assert float(a[2][-1]) == 1.0
+    for x, q in zip(a[1:], pl[1:]):
+        assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
+            <= tol.WLS_WHITEN_REL
+
+
+def test_wls_fit_from_par_tim_on_card(card):
+    """WLSFitter from the committed par and tim on the card, one K7
+    launch per iteration."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models.builder import get_model_and_toas
+    from pint_tpu_torch.convert import B1855_PAR, B1855_TIM
+
+    model, toas = get_model_and_toas(str(B1855_PAR), str(B1855_TIM))
+    f = WLSFitter(toas, model)
+    k0 = tl.K7.launches
+    chi2 = f.fit_toas(maxiter=3)
+    assert np.isfinite(chi2)
+    assert tl.K7.launches == k0 + len(f.chi2_iters)
 
 
 def test_k6_against_plain(card):

@@ -255,18 +255,23 @@ def test_k5_shared_memory_and_width_limit():
     """K5's block holds the capacity padded to a multiple of 8 and its
     right-hand sides to one of 16 (row strides + 4), and below 3 block
     rows the diagonal blocks' inverses: 53,248 bytes at the case's
-    nb = 63, m2 = 28; a pulsar too wide for one block's shared memory
-    raises before any launch."""
+    nb = 63, m2 = 28.  A pulsar too wide for one block's shared memory
+    takes the wide forms (K5w/K5bw; their panel width and their own
+    limit are the library's, checked on the card in
+    test_torch_cuda.py)."""
     from pint_tpu_torch.linalg import K5_SHARED_BYTES, _k5_shape, \
         k5_shared_bytes
 
     assert k5_shared_bytes(63, 28) == (53248, 8 * (63 * 63 + 63 * 28))
     assert k5_shared_bytes(29, 28)[0] == 8 * (32 * 36 + 32 * 36)
     assert k5_shared_bytes(16, 3)[0] == 8 * (16 * 20 + 16 * 20 + 2 * 96)
-    _k5_shape(100, 28)
+    assert _k5_shape(100, 28) == ("narrow", "narrow")
     assert max(k5_shared_bytes(144, 28)) <= K5_SHARED_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        _k5_shape(145, 28)
+    assert _k5_shape(144, 28) == ("narrow", "narrow")
+    assert k5_shared_bytes(145, 28)[0] > K5_SHARED_BYTES
+    assert _k5_shape(145, 28) == ("wide", "narrow")
+    assert _k5_shape(470, 28) == ("wide", "wide")
+    assert _k5_shape(4000, 28) == ("wide", "wide")
 
 
 # --------------------------------------------------------------------------

@@ -75,6 +75,49 @@ def test_hmc_modules_are_scanned():
         <= set(_modules())
 
 
+def test_ingest_modules_are_scanned():
+    assert {"pint_tpu_torch.time", "pint_tpu_torch.time.mjd",
+            "pint_tpu_torch.time.scales", "pint_tpu_torch.ephem",
+            "pint_tpu_torch.ephem.analytic", "pint_tpu_torch.ephem.compiled",
+            "pint_tpu_torch.obs",
+            "pint_tpu_torch.obs.clock", "pint_tpu_torch.obs.datadirs",
+            "pint_tpu_torch.obs.erot", "pint_tpu_torch.obs.iers",
+            "pint_tpu_torch.toa", "pint_tpu_torch.models.parameter",
+            "pint_tpu_torch.models.builder",
+            "pint_tpu_torch.simulation"} <= set(_modules())
+
+
+def test_ingest_reads_jax_data_in_place():
+    """The builtin ephemeris and the runtime clock files are the JAX
+    package's, read by path; nothing is copied into the port."""
+    from pint_tpu_torch import DATA_DIR
+    from pint_tpu_torch.ephem.compiled import data_path
+    from pint_tpu_torch.obs.datadirs import builtin_runtime_dir
+
+    data = REPO / "pint_tpu" / "data"
+    assert Path(DATA_DIR) == data
+    assert Path(data_path()) == data / "ephem_builtin.npz"
+    assert Path(builtin_runtime_dir()) == data / "runtime"
+    assert not any(p.suffix in (".clk", ".bsp") or p.name.startswith(
+        "ephem_builtin") for p in PKG.rglob("*"))
+
+
+def test_wls_and_wide_wrappers_never_fall_back():
+    """K7's wrapper and the wide K5/K5b route raise on CPU tensors."""
+    from pint_tpu_torch import linalg as tl
+
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.wls_whiten_cuda(*(torch.ones(s, dtype=torch.float64)
+                             for s in ((4,), (4, 2), (4,))))
+    pre = tl.KronGram(*(torch.zeros(s, dtype=torch.float64) for s in (
+        (1, 200, 200), (1, 200, 4), (1, 4, 4), (1, 200), (1, 4), (1,),
+        (1,))))
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.kron_pulsar_cuda(pre, torch.ones((1, 1, 200),
+                                            dtype=torch.float64))
+    assert tl.K7.launches == tl.K5W.launches == tl.K5BW.launches == 0
+
+
 def test_hmc_wrappers_never_fall_back():
     """The CUDA wrappers of K5, K5b and K6 raise on CPU tensors: a
     kernel's plain version runs only through the dispatchers, and only
@@ -130,6 +173,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
             make()
     assert resolve_device("cpu").type == "cpu"
     assert model.prepare(toas, tzr, device="cpu").device.type == "cpu"
+
+
+def test_fit_from_par_tim_defaults_to_cuda(monkeypatch):
+    from pint_tpu_torch.convert import B1855_PAR, B1855_TIM
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+    from pint_tpu_torch.models.builder import get_model_and_toas
+    from pint_tpu_torch.simulation import make_fake_toas_uniform
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, toas = get_model_and_toas(str(B1855_PAR), str(B1855_TIM))
+    for make in (lambda: WLSFitter(toas, model),
+                 lambda: GLSFitter(toas, model),
+                 lambda: WLSFitter(toas, model, device="cuda"),
+                 lambda: make_fake_toas_uniform(54000, 54100, 3, model)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
 
 
 def test_gw_entry_points_default_to_cuda(monkeypatch):
