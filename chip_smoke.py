@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K7 and the wide forms K5w/K5bw, one nvcc per source, all started
+   (K1-K8 and the wide forms K5w/K5bw, one nvcc per source, all started
    together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
@@ -86,11 +86,36 @@ the closing ``{"ok": true, ...}`` line is not printed:
     fit's own (r, J, sigma) and at N = 10^4, P = 11: rw bit-identical,
     the rest within ``tolerances.WLS_WHITEN_REL``, bit-identical run to
     run; time, bound, ptxas report;
-16. ``wide case``: ``pint_tpu_torch/data/pta4_wide.npz`` (4 pulsars,
+16. ``grid gls`` / ``grid wls``: the 16 x 16 chi^2 grids of the par/tim
+    case through ``grid.make_grid_fn`` (GLS over (M2, SINI); WLS over
+    (F0, F1) on ``b1855_white.par``), held to the JAX answers of
+    ``b1855_grid_answers.npz`` (chi^2 within
+    ``tolerances.REFIT_CHI2_REL``, refit values within the fit rows'
+    conditioning-aware limits less one ulp); launches of
+    K1, K2, K7, K8 during the grid call (those of its path > 0) and per
+    call at G = 256 and G = 16 (equal); cold and warm wall, points/s,
+    busy share and device time by group (the factorization's kernels
+    named), peak device memory;
+17. ``k8``: K8 (Woodbury chi^2 against a prebuilt factor) against its
+    plain version at the GLS grid's own residuals (G = 256, N = 10^4,
+    K = 461): within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n,
+    bit-identical run to run; time beside the plain version, the
+    library composite (dense U^T (R/n)^T + solve_triangular) and the
+    bound; ``grid kernels``: K1, K2 and K7 at the grids' batched shapes
+    against their plain versions, timed;
+18. ``downhill``: ``DownhillGLSFitter`` and ``DownhillWLSFitter`` from
+    the exported start (SINI = 0.995), held to JAX's iteration count,
+    ``converged``, each iteration's lambda, chi^2 per iteration
+    (``tolerances.REFIT_CHI2_REL``), values and uncertainties; and from
+    SINI = 0.99, whose last step is decided at the noise floor, held to
+    the iteration count, ``converged`` and chi^2 per iteration, its
+    lambdas and values printed beside JAX's from 0.99 and one ulp either
+    side; the first step halved; launches of K1, K2, K7 during each fit;
+19. ``wide case``: ``pint_tpu_torch/data/pta4_wide.npz`` (4 pulsars,
     100 red-noise modes, nb = 203) -- ``lnlike``, a 2 x 2 grid and the
     posterior's value_and_grad at 4 theta on the card against the JAX
     answers it carries; launches of the wide forms K5w and K5bw (> 0);
-17. ``k5 wide``: K5w and K5bw against their plain versions at the wide
+20. ``k5 wide``: K5w and K5bw against their plain versions at the wide
     path's own inputs (the common process's noise weights, 1 x 4
     pulsars, and the posterior's at its 4 theta), at the wide case's
     grams with 16 chains and at nb = 470, m2 = 28 (16 chains x 4
@@ -98,10 +123,11 @@ the closing ``{"ok": true, ...}`` line is not printed:
     to run, no ptxas spill; times beside the library calls and bounds
     (the kernels line takes the posterior's 4-theta row, the shape at
     which K5bw runs on the path);
-18. the ``kernels`` JSON line: per kernel its launches on its main path
-    (the fit for K1 and K2, the WLS fit from par/tim for K7, the GW path
-    for K3 and K4, the HMC run for K5, K5b and K6, the wide case for K5w
-    and K5bw), error against the plain version, time, plain-version
+21. the ``kernels`` JSON line: per kernel its launches on its main path
+    (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
+    grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
+    K6, the wide case for K5w and K5bw), error against the plain
+    version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
     computes the same function.
 
@@ -246,10 +272,11 @@ def phase_build():
     from pint_tpu_torch.fixedpoint import K1
     from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
-    from pint_tpu_torch.linalg import K2, K3, K5, K7
+    from pint_tpu_torch.linalg import K2, K3, K5, K7, K8
 
     t0 = time.time()
-    libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7)])
+    libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7,
+                                           K8)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -747,8 +774,12 @@ def phase_gw(arrays, pairs):
         f"{n_pts / t_grid:.1f} points/s, {crn.grid_chunk()} points per "
         f"batch; peak device memory {peak / 2**30:.3f} GiB during the "
         f"grid ({base_mem / 2**30:.3f} GiB held before it)")
-    busy, dev_ms = profile_breakdown(
-        lambda: crn.lnlike_grid(grid_a, grid_g), t_grid, "grid")
+    # the trace, not key_averages: a grid's ~10^4 MAGMA launches took
+    # the profiler's own summary minutes
+    busy, dev_ms, _ = trace_breakdown(
+        lambda: crn.lnlike_grid(grid_a, grid_g), t_grid, "grid",
+        {"MAGMA batched getrf": ["batched"], "K5": ["kron_pulsar"],
+         "ATen elementwise": ["at::native"]})
     # one point's least work: the LU of its (P m2)^2 system and one
     # solve; reads the per-pulsar m, the ORF and the spectrum
     pm = crn.n_pulsars * 2 * crn.nmodes
@@ -1492,6 +1523,390 @@ def phase_k7(f_wls):
     return out
 
 
+#: the chi^2 grids of the par/tim case: gridded names, and the par
+GRID_NAMES = {"gls": ["M2", "SINI"], "wls": ["F0", "F1"]}
+#: device-time groups of a grid call (kernel names, lower case)
+GRID_GROUPS = {"eigh": ["syev", "sytrd", "stedc", "ormtr", "orgtr"],
+               "svd": ["gesvd", "gesdd", "svd"], "K1": ["phase_f0_t"],
+               "K2": ["segment_sum"], "K7": ["wls_whiten"],
+               "K8": ["woodbury_chi2"], "gemm": ["gemm", "gemv"]}
+
+
+def refit_limits(kind, model, toas):
+    """fit_tolerances of a grid's refit (the gridded parameters frozen)
+    from one fit at the par's values on the card, and the refit's
+    uncertainties."""
+    import copy
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+
+    m = copy.deepcopy(model)
+    m.free_params = [p for p in m.free_params if p not in GRID_NAMES[kind]]
+    f = (GLSFitter if kind == "gls" else WLSFitter)(toas, m, device="cuda")
+    f.fit_toas(maxiter=3)
+    cond = f.fit_health["cond_log10"]
+    if kind == "wls":
+        cond = tol.wls_normal_cond_log10(cond)
+    return tol.fit_tolerances(cond), m.uncertainties, cond
+
+
+def phase_grid(kind, model, toas, ref):
+    """A 16 x 16 chi^2 grid of the par/tim case on the card (GLS over
+    (M2, SINI) or WLS over (F0, F1) on the white par), held to the JAX
+    answers of ``b1855_grid_answers.npz``: chi^2 within
+    ``tolerances.REFIT_CHI2_REL`` (the nominal 1e-8 and JAX's own
+    movement with one more step printed beside), the refit values within
+    the fit rows' conditioning-aware limits less one ulp
+    (``tolerances.values_sigma_ulp``); launches of each kernel of the
+    path during the grid call (all > 0) and per call at G = 256 and
+    G = 16 (equal); cold and warm wall, points/s, busy share and the
+    device time by group, peak device memory."""
+    import torch
+
+    from pint_tpu_torch import grid
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7, K8
+
+    names = GRID_NAMES[kind]
+    kernels = {"K1": K1, "K2": K2, "K7": K7, "K8": K8}
+    need = ("K1", "K2", "K8") if kind == "gls" else ("K1", "K7")
+    pts = ref[f"{kind}_points"]
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    fn, fit_params, part = grid.make_grid_fn(
+        toas, model, names, n_steps=int(ref["n_steps"]), device="cuda")
+    chi2, fitted = fn(pts)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if fit_params != [str(p) for p in ref[f"{kind}_fit_params"]]:
+        raise AssertionError(f"grid {kind}: refit parameters differ")
+    lim, unc, cond = refit_limits(kind, model, toas)
+    chi2_np, fitted_np = chi2.cpu().numpy(), fitted.cpu().numpy()
+    errs = {"chi2_rel": float(np.max(np.abs(chi2_np / ref[f"{kind}_chi2"]
+                                            - 1))),
+            "values_sigma": tol.values_sigma_ulp(
+                fitted_np, ref[f"{kind}_fitted"],
+                [unc[k] for k in fit_params])}
+    tols = {"chi2_rel": tol.REFIT_CHI2_REL,
+            "values_sigma": lim["values_sigma"]}
+    per_call = {}
+    for g in (len(pts), 16):
+        before = {n: k.launches for n, k in kernels.items()}
+        fn(pts[:g])
+        per_call[g] = {n: k.launches - before[n] for n, k in kernels.items()}
+
+    def warm():
+        fn(pts)
+        torch.cuda.synchronize()
+
+    t0 = time.time()
+    reps = 3
+    for _ in range(reps):
+        warm()
+    warm_s = (time.time() - t0) / reps
+    busy, dev_ms, shares = trace_breakdown(warm, warm_s, f"grid_{kind}",
+                                           GRID_GROUPS)
+    with open(os.path.join(OUT_DIR, f"grid_{kind}_profile.txt")) as fh:
+        routes = sorted({ln.split(None, 2)[2][:80] for ln in fh
+                         if ln[:1] == " " and any(
+                             w in ln.lower() for w in
+                             GRID_GROUPS["eigh"] + GRID_GROUPS["svd"])})
+    out = {"launches": launches, "per_call": per_call, "cold_s": cold_s,
+           "warm_s": warm_s, "points_per_s": len(pts) / warm_s,
+           "busy": busy, "device_ms": dev_ms, "shares": shares,
+           "peak_gib": peak / 2**30, "errs": errs, "tols": tols,
+           "cond_log10": cond, "chi2_nominal_1e-8_held":
+               errs["chi2_rel"] <= tol.CHI2_REL,
+           "jax_chi2_one_more_step_rel": float(np.max(np.abs(
+               ref[f"{kind}_chi2_next"] / ref[f"{kind}_chi2"] - 1))),
+           "partition": {k: v for k, v in part.items()
+                         if k in ("n_linear", "n_nonlinear", "n_frozen")}}
+    log(f"grid {kind}: {len(pts)} points over {names}, refit {fit_params}; "
+        + json.dumps({k: v for k, v in out.items()
+                      if k not in ("shares",)})
+        + "; device time by group " + json.dumps(shares)
+        + "; factorization kernels " + json.dumps(routes))
+    bad = [k for k in errs if not errs[k] <= tols[k]]
+    if bad:
+        raise AssertionError(f"grid {kind} disagrees with JAX on {bad}")
+    if not all(launches[k] > 0 for k in need):
+        raise AssertionError(f"a kernel of the {kind} grid never ran: "
+                             f"{launches}")
+    if per_call[len(pts)] != per_call[16]:
+        raise AssertionError(f"grid {kind}: launches depend on the number "
+                             f"of points: {per_call}")
+    if kind == "gls" and per_call[16]["K8"] != 1:
+        raise AssertionError(f"grid gls: K8 should serve the final chi^2 "
+                             f"alone: {per_call}")
+    out.update(fn=fn, names=names, fit_params=fit_params, pts=pts,
+               fitted=fitted)
+    return out
+
+
+def grid_residuals(g):
+    """(G, N) time residuals at a grid's points and refit values."""
+    import torch
+
+    resids = g["fn"].resids
+    base = resids.prepared.values_dict()
+
+    def one(p, v):
+        values = dict(base)
+        values.update({n: p[i] for i, n in enumerate(g["names"])})
+        values.update({n: v[i] for i, n in enumerate(g["fit_params"])})
+        return resids.time_resids_at(values)
+
+    return torch.func.vmap(one)(torch.as_tensor(g["pts"], device="cuda"),
+                                g["fitted"])
+
+
+def phase_k8(g):
+    """K8 against its plain version at the GLS grid's own (G, N, K): the
+    residuals at its 256 refit points against the par's Woodbury factor;
+    within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n, bit-identical
+    run to run; time beside the plain version, the library composite
+    (dense U^T (R/n)^T and solve_triangular) and the bound."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    resids = g["fn"].resids
+    base = resids.prepared.values_dict()
+    with torch.no_grad():
+        R = grid_residuals(g).contiguous()
+        sigma = resids.sigma_at(base)
+        U, phi = resids._noise_basis_phi_at(base)
+        pre = tl.woodbury_precompute(sigma, U, phi)
+    gn, n = R.shape
+    parts = tl._basis_parts(U, n, R.device)
+    args = (R, pre.nvec) + tuple(parts) + (pre.chol_upper,)
+    a = tl.woodbury_chi2_pre_cuda(*args)
+    b = tl.woodbury_chi2_pre_cuda(*args)
+    p = tl.woodbury_chi2_pre_plain(*args)
+    torch.cuda.synchronize()
+    scale = torch.sum(R * R / pre.nvec, dim=1)
+    rel = float(torch.max(torch.abs(a - p) / scale))
+    rerun = _bits_equal((a,), (b,))
+    k_pre, k_e, k_post = (parts[0].shape[1], parts[2].numel() - 1,
+                          parts[3].shape[1])
+    k, kd, n_perm = k_pre + k_e + k_post, k_pre + k_post, parts[1].numel()
+    log(f"k8: G={gn}, N={n}, K={k} ({kd} dense, {k_e} epochs): vs plain "
+        f"{rel!r} of sum r^2/n (limit {tol.WOODBURY_PRE_REL:g}); run-to-run "
+        f"bit-identical {rerun}; chi2 {float(a.min())!r} .. "
+        f"{float(a.max())!r}")
+    if not (rerun and rel <= tol.WOODBURY_PRE_REL):
+        raise AssertionError("K8 disagrees with its plain version")
+    Ud = tl.su_to_dense(U)
+    L = pre.chol_lower
+
+    def library():
+        y = R / pre.nvec
+        z = torch.linalg.solve_triangular(L, Ud.T @ y.T, upper=False)
+        return torch.sum(R * y, dim=1) - torch.sum(z * z, dim=0)
+
+    lib_rel = float(torch.max(torch.abs(library() - p) / scale))
+    ms, how = kernel_ms(partial(tl.woodbury_chi2_pre_cuda, *args))
+    plain_ms, _ = kernel_ms(partial(tl.woodbury_chi2_pre_plain, *args))
+    lib_ms, _ = kernel_ms(library)
+    nbytes = 8 * (gn * n + n + n * kd + k * k + gn) + 4 * (n_perm + k_e + 1)
+    # the dense product U_d^T (R/n)^T and the substitution are GEMM- and
+    # TRSM-shaped (the tensor-core peak); the rest is elementwise, and
+    # enters at its time on the tensor-core scale
+    tc_flops = gn * (2 * n * kd + k * k)
+    ew_flops = gn * (3 * n + n_perm + 2 * k)
+    bnd, by = bound_ms(nbytes, tc_flops + ew_flops * FP64_TC_FLOPS
+                       / FP64_FLOPS, FP64_TC_FLOPS)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_rel": lib_rel, "bound_ms": bnd, "bound_by": by,
+           "max_abs_err": float(torch.max(torch.abs(a - p))),
+           "timed_by": how, "G": gn, "N": n, "K": k,
+           "per_call_with_enqueue_ms": cuda_ms(
+               partial(tl.woodbury_chi2_pre_cuda, *args), reps=20)}
+    out.update(build_report(tl.K8, ("woodbury_chi2_pre_kernel",)))
+    log("k8 times: " + json.dumps(out))
+    return out
+
+
+def phase_grid_kernels(g, g_wls):
+    """K1, K2 and K7 at the grids' batched shapes: K1 over G F0 values
+    against the ticks, K2 over the G P columns of the GLS step's U^T
+    (J w), K7 over the WLS grid's G designs; each against its plain
+    version (K1 and K7 on the card, K2 on the CPU: the plain version's
+    ``index_add`` on the card adds with atomics, in no fixed order),
+    with time, plain time, bound and library."""
+    import torch
+
+    from pint_tpu_torch import fixedpoint as fp
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    prep = g["fn"].resids.prepared
+    dt = prep.ctx["Spindown"]["dt_ticks"]
+    n, gn = dt.numel(), len(g["pts"])
+    rng = np.random.default_rng(21)
+    f0 = torch.tensor(prep.model.values["F0"] + rng.normal(0, 1e-10, gn),
+                      device="cuda")[:, None]
+    nk, fk = fp.phase_f0_t_cuda(f0, dt)
+    np_, fp_ = fp.phase_f0_t_plain(f0, dt)
+    if not (torch.equal(nk, np_) and _bits_equal((fk,), (fp_,))):
+        raise AssertionError("batched K1 differs from its plain version")
+    out = {}
+    b, by = bound_ms(16 * gn * n + 8 * (n + gn), 4 * gn * n)
+    out["k1"] = {"shape": [gn, n], "bound_ms": b, "bound_by": by,
+                 "library_ms": None}
+    out["k1"]["ms"], out["k1"]["timed_by"] = kernel_ms(
+        partial(fp.phase_f0_t_cuda, f0, dt))
+    out["k1"]["plain_ms"], _ = kernel_ms(partial(fp.phase_f0_t_plain, f0,
+                                                 dt))
+
+    su = g["fn"].resids._U_ext
+    m = gn * len(g["fit_params"])
+    x = torch.tensor(rng.standard_normal((n, m)), device="cuda")
+    a = tl.segment_sum_cuda(x, su.perm, su.offsets)
+    ref = tl.segment_sum_plain(x.cpu(), su.perm.cpu(), su.offsets.cpu())
+    if not _bits_equal((a.cpu(),), (ref,)):
+        raise AssertionError("K2 at the grid's width differs from plain")
+    seg64 = su.seg.to(torch.int64)
+
+    def lib2():
+        return torch.zeros((su.k_e + 1, m), dtype=torch.float64,
+                           device="cuda").index_add_(0, seg64, x)
+
+    b, by = bound_ms(8 * n * m + 4 * (su.perm.numel() + su.k_e + 1)
+                     + 8 * su.k_e * m, su.perm.numel() * m)
+    out["k2"] = {"shape": [n, m], "bound_ms": b, "bound_by": by}
+    out["k2"]["ms"], out["k2"]["timed_by"] = kernel_ms(
+        partial(tl.segment_sum_cuda, x, su.perm, su.offsets))
+    out["k2"]["plain_ms"], _ = kernel_ms(
+        partial(tl.segment_sum_plain, x, su.perm, su.offsets))
+    out["k2"]["library_ms"], _ = kernel_ms(lib2)
+
+    p = len(g_wls["fit_params"])
+    r = torch.tensor(rng.standard_normal((gn, n)) * 1e-6, device="cuda")
+    J = torch.tensor(rng.standard_normal((gn, n, p))
+                     * 10.0 ** rng.uniform(-8, 8, p), device="cuda")
+    err = g_wls["fn"].resids.sigma_at(
+        g_wls["fn"].resids.prepared.values_dict())
+    ka, kb = tl.wls_whiten_cuda(r, J, err), tl.wls_whiten_cuda(r, J, err)
+    q = tl.wls_whiten_plain(r, J, err)
+    rel = {nm: tol.vector_rel(x_.cpu().numpy(), y_.cpu().numpy())
+           for nm, x_, y_ in zip(("rw", "Jn", "norms", "chi2"), ka, q)}
+    if not (_bits_equal(ka, kb) and torch.equal(ka[0], q[0])
+            and all(v <= tol.WLS_WHITEN_REL for v in rel.values())):
+        raise AssertionError(f"K7 at the grid's shape differs: {rel}")
+    b, by = bound_ms(8 * (gn * (2 * n * p + 2 * n + p + 1) + n),
+                     gn * (3 * n * p + 4 * n))
+    out["k7"] = {"shape": [gn, n, p], "vs_plain": rel, "bound_ms": b,
+                 "bound_by": by, "library_ms": None}
+    out["k7"]["ms"], out["k7"]["timed_by"] = kernel_ms(
+        partial(tl.wls_whiten_cuda, r, J, err))
+    out["k7"]["plain_ms"], _ = kernel_ms(
+        partial(tl.wls_whiten_plain, r, J, err))
+    log("grid kernels (K1, K2, K7 at the grids' batched shapes): "
+        + json.dumps(out))
+    return out
+
+
+def phase_downhill(model, white, toas, ref):
+    """DownhillGLSFitter (the par) and DownhillWLSFitter (the white par)
+    on the card from the exported start (SINI = 0.995), held to JAX's:
+    the same iteration count, ``converged`` and lambdas, the accepted
+    chi^2 per iteration within ``tolerances.REFIT_CHI2_REL``, values and
+    uncertainties within the conditioning-aware limits; the first step
+    halved; launches of K1, K2, K7 during each fit; wall.  Then from
+    SINI = 0.99, whose last iteration proposes a step at the noise
+    floor: held to the iteration count, ``converged`` and chi^2 per
+    iteration; the lambdas and the values' distance from JAX printed
+    beside JAX's own from one ulp either side of the start."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.downhill import DownhillGLSFitter, DownhillWLSFitter
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7
+
+    kernels = {"K1": K1, "K2": K2, "K7": K7}
+    out = {}
+    for case, whole in (("downhill", True), ("downhill99", False)):
+        start = {str(k): float(v) for k, v in ref[case + "_start"]}
+        for name, cls, m0 in (("gls", DownhillGLSFitter, model),
+                              ("wls", DownhillWLSFitter, white)):
+            m = copy.deepcopy(m0)
+            m.values.update(start)
+            p = f"{case}_{name}_"
+            free = [str(k) for k in ref[p + "free_params"]]
+            # the main path: counts reset just before, read just after
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.time()
+            f = cls(toas, m, device="cuda")
+            chi2 = f.fit_toas()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: k.launches for n, k in kernels.items()}
+            cond = f.fit_health["cond_log10"]
+            if name == "wls":
+                cond = tol.wls_normal_cond_log10(cond)
+            tols = tol.fit_tolerances(cond)
+            errs = tol.fit_errors(
+                [m.values[k] for k in free],
+                [m.uncertainties[k] for k in free], f.chi2_iters,
+                ref[p + "values"], ref[p + "uncertainties"],
+                ref[p + "chi2_iters"])
+            errs["final_chi2_rel"] = abs(chi2 / float(ref[p + "final_chi2"])
+                                         - 1)
+            tols["chi2_rel"] = tols["final_chi2_rel"] = tol.REFIT_CHI2_REL
+            same = {"n_iter": [len(f.chi2_iters), int(ref[p + "n_iter"])],
+                    "converged": [f.converged, bool(ref[p + "converged"])]}
+            held = ("chi2_rel", "final_chi2_rel")
+            if whole:
+                same["lambdas"] = [f.step_lambdas,
+                                   ref[p + "lambdas"].tolist()]
+                held = tuple(errs)
+            else:
+                errs["jax_ulp_values_sigma"] = float(
+                    ref[p + "ulp_values_sigma"])
+                errs["jax_ulp_chi2_rel"] = float(ref[p + "ulp_chi2_rel"])
+            out[f"{case} {name}"] = {"launches": launches, "wall_s": wall,
+                                     "errs": errs,
+                                     "lambdas": f.step_lambdas}
+            log(f"{case} {name}: start {start}; step lambdas "
+                f"{f.step_lambdas} (JAX {ref[p + 'lambdas'].tolist()}"
+                + ("" if whole else ", JAX one ulp either side "
+                   + str(ref[p + "ulp_lambdas"].tolist()))
+                + f"); chi2 per iteration {f.chi2_iters} (JAX "
+                f"{ref[p + 'chi2_iters'].tolist()}); " + json.dumps(same)
+                + "; observed " + json.dumps(errs) + "; held "
+                + json.dumps({k: tols[k] for k in held})
+                + f" (chi2 nominal {tol.CHI2_REL:g} held "
+                f"{errs['chi2_rel'] <= tol.CHI2_REL}); launches {launches}; "
+                f"wall {wall:.3f} s")
+            bad = [k for k in held if not errs[k] <= tols[k]]
+            if bad or any(a != b for a, b in same.values()):
+                raise AssertionError(f"{case} {name} disagrees with JAX: "
+                                     f"{bad} {same}")
+            if not f.step_lambdas[0] < 1.0:
+                raise AssertionError(f"{case} {name}: the first step was "
+                                     "not halved")
+            need = ("K1", "K2") if name == "gls" else ("K1", "K7")
+            if not all(launches[k] > 0 for k in need):
+                raise AssertionError(f"a kernel of {case} {name} never ran: "
+                                     f"{launches}")
+    return out
+
+
 def synthetic_grams(n_psr, nb, m2, seed, n_rows=None):
     """KronGram of ``n_psr`` random pulsars of width nb (+ m2 GW
     columns) over ``n_rows`` rows, on the card."""
@@ -1696,6 +2111,28 @@ def main():
         table.append(gw_row("wls_whiten", "wls_whiten.cu",
                             "pint_tpu/fitter.py:152",
                             fits["wls"]["launches"]["K7"], k7))
+    else:
+        table = None
+    k8 = None
+    if ingest is not None:
+        from pint_tpu_torch.convert import (B1855_GRID_ANSWERS,
+                                            B1855_WHITE_PAR, load_arrays)
+        from pint_tpu_torch.models.builder import get_model
+
+        model_pt, toas_pt = ingest[:2]
+        white = get_model(str(B1855_WHITE_PAR))
+        gref = load_arrays(B1855_GRID_ANSWERS)
+        g_gls = run("grid gls", phase_grid, "gls", model_pt, toas_pt, gref)
+        g_wls = run("grid wls", phase_grid, "wls", white, toas_pt, gref)
+        if g_gls is not None:
+            k8 = run("k8", phase_k8, g_gls)
+            if g_wls is not None:
+                run("grid kernels", phase_grid_kernels, g_gls, g_wls)
+        run("downhill", phase_downhill, model_pt, white, toas_pt, gref)
+    if table is not None and k8 is not None:
+        table.append(gw_row("woodbury_chi2_pre", "woodbury_pre.cu",
+                            "pint_tpu/linalg.py:381",
+                            g_gls["launches"]["K8"], k8))
     else:
         table = None
     pta_arrays, pairs = load_pta_case()

@@ -43,6 +43,13 @@ B1855_PAR = Path(__file__).resolve().parent / "data" / "b1855_like.par"
 B1855_TIM = Path(__file__).resolve().parent / "data" / "b1855_epochs_10k.tim"
 B1855_TIM_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "b1855_epochs_10k_answers.npz"
+#: the par without its ECORR and TNRed lines (a WLS model of the same
+#: TOAs), and the JAX CPU answers of the chi^2 grids and downhill fits
+#: on the par/tim case (``tools/export_torch_grid_case.py``)
+B1855_WHITE_PAR = Path(__file__).resolve().parent / "data" \
+    / "b1855_white.par"
+B1855_GRID_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "b1855_grid_answers.npz"
 #: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
 #: with the JAX CPU answers of its likelihood and posterior
 PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"

@@ -26,7 +26,10 @@ Differentiation: :func:`phase_f0_t` is a ``torch.autograd.Function``
 whose forward-mode ``jvp`` is the analytic tangent t * dF0, so
 ``torch.func.jacfwd`` composes through the integer path.  The kernel
 itself is registered as the custom op ``pint_tpu_torch::phase_f0_t``
-so it dispatches cleanly under the function transforms.
+so it dispatches cleanly under the function transforms, with a batching
+rule: under ``torch.func.vmap`` over G points (a chi^2 grid over F0,
+say) the op runs once on the whole batch, one K1 launch over G x N,
+never once per point.
 """
 
 from __future__ import annotations
@@ -48,8 +51,7 @@ _TWO44_I = 1 << 44
 #: :128 phase_f0_t's guard)
 K1 = CudaKernel(
     "phase_f0_t", "phase_f0_t.cu", "phase_f0_t_launch",
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int64, ctypes.c_int64])
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 6)
 
 
 def ticks_to_seconds(ticks):
@@ -113,8 +115,9 @@ def phase_f0_t_raw(f0_fix, t_ticks):
 
 def phase_f0_t_plain(f0, t_ticks):
     """The plain PyTorch version of kernel K1: exact F0*t with the
-    NaN-poison range guard.  ``f0`` is a 0-d float64 tensor (Hz),
-    ``t_ticks`` int64 ticks."""
+    NaN-poison range guard.  ``f0`` float64 (Hz) and ``t_ticks`` int64
+    ticks broadcast against each other (a 0-d F0 for the fit, one F0
+    per TOA, or F0 of shape (G, 1) against (N,) ticks for G points)."""
     n, frac = phase_f0_t_raw(freq_to_fix(f0), t_ticks)
     expect = f0 * ticks_to_seconds(t_ticks)
     bad = (
@@ -127,26 +130,37 @@ def phase_f0_t_plain(f0, t_ticks):
             torch.where(bad, torch.full_like(frac, float("nan")), frac))
 
 
+def _rows_cols(x, shape, rows, cols):
+    """``x`` broadcast to ``shape`` and seen as (rows, cols): the view
+    (stride 0 along broadcast dimensions) and its two strides."""
+    x2 = x.expand(shape).reshape(rows, cols)
+    return x2, x2.stride(0), x2.stride(1)
+
+
 def phase_f0_t_cuda(f0, t_ticks):
-    """Kernel K1 on CUDA tensors.  Checks device, dtype, shape and
-    contiguity, allocates the outputs and launches; raises on anything
-    the kernel does not take."""
+    """Kernel K1 on CUDA tensors, ``f0`` and ``t_ticks`` broadcast as in
+    :func:`phase_f0_t_plain`.  The output is seen as (rows, cols) with
+    cols its last dimension; each operand reaches the kernel as a
+    pointer and two strides, so a broadcast F0 or tick array is never
+    copied.  Checks device and dtype, allocates the outputs and
+    launches once; raises on anything the kernel does not take."""
     if f0.device.type != "cuda" or t_ticks.device != f0.device:
         raise ValueError("phase_f0_t_cuda: f0 and t_ticks must be on one "
                          "CUDA device")
-    if f0.dtype != torch.float64 or (f0.dim() != 0
-                                     and f0.shape != t_ticks.shape):
-        raise ValueError("phase_f0_t_cuda: f0 must be a float64 scalar "
-                         "(0-d) or one value per TOA")
+    if f0.dtype != torch.float64:
+        raise ValueError("phase_f0_t_cuda: f0 must be float64")
     if t_ticks.dtype != torch.int64:
         raise ValueError("phase_f0_t_cuda: t_ticks must be int64")
-    f0 = f0.contiguous()
-    t = t_ticks.contiguous()
-    n = torch.empty(t.shape, dtype=torch.int64, device=t.device)
-    frac = torch.empty(t.shape, dtype=torch.float64, device=t.device)
-    if t.numel():
-        K1.launch(t.device, f0.data_ptr(), t.data_ptr(), n.data_ptr(),
-                  frac.data_ptr(), t.numel(), 0 if f0.dim() == 0 else 1)
+    shape = torch.broadcast_shapes(f0.shape, t_ticks.shape)
+    n = torch.empty(shape, dtype=torch.int64, device=f0.device)
+    frac = torch.empty(shape, dtype=torch.float64, device=f0.device)
+    if n.numel():
+        cols = shape[-1] if len(shape) else 1
+        rows = n.numel() // cols
+        f2, f_rs, f_cs = _rows_cols(f0, shape, rows, cols)
+        t2, t_rs, t_cs = _rows_cols(t_ticks, shape, rows, cols)
+        K1.launch(f0.device, f2.data_ptr(), t2.data_ptr(), n.data_ptr(),
+                  frac.data_ptr(), rows, cols, f_rs, f_cs, t_rs, t_cs)
     return n, frac
 
 
@@ -164,9 +178,28 @@ def _(f0, t_ticks):
 
 @_phase_f0_t_op.register_fake
 def _(f0, t_ticks):
-    return (torch.empty_like(t_ticks),
-            torch.empty(t_ticks.shape, dtype=torch.float64,
-                        device=t_ticks.device))
+    shape = torch.broadcast_shapes(f0.shape, t_ticks.shape)
+    return (t_ticks.new_empty(shape),
+            torch.empty(shape, dtype=torch.float64, device=t_ticks.device))
+
+
+@_phase_f0_t_op.register_vmap
+def _(info, in_dims, f0, t_ticks):
+    """One call for the whole batch: each batched operand gets its batch
+    dimension in front and ones before its own dimensions, so a batch of
+    F0 values (G,) against unbatched ticks (N,) is one (G, N) launch."""
+    nd = max(x.dim() - (d is not None)
+             for x, d in zip((f0, t_ticks), in_dims))
+
+    def lift(x, d):
+        if d is None:
+            return x
+        x = x.movedim(d, 0)
+        return x.reshape(x.shape[:1] + (1,) * (nd + 1 - x.dim())
+                         + x.shape[1:])
+
+    return (_phase_f0_t_op(lift(f0, in_dims[0]), lift(t_ticks, in_dims[1])),
+            (0, 0))
 
 
 class _PhaseF0T(torch.autograd.Function):
@@ -194,11 +227,11 @@ class _PhaseF0T(torch.autograd.Function):
 def phase_f0_t(f0, t_ticks):
     """Exact pulse phase F0*t, differentiable in F0 (forward mode).
 
-    f0: 0-d float64 tensor, Hz (quantized to 2^-52 Hz); t_ticks: int64
-    ticks since the reference epoch.  Returns (n int64 turns, frac
-    float64 in [-0.5, 0.5)).  Out-of-range inputs (f0 <= 0, f0 >= 2048
-    Hz, |F0*t| >= 2^43 turns, non-finite) give n = 0, frac = NaN instead
-    of a wrapped, plausible-looking phase."""
+    f0: float64 tensor, Hz (quantized to 2^-52 Hz), 0-d or broadcast
+    against t_ticks: int64 ticks since the reference epoch.  Returns (n
+    int64 turns, frac float64 in [-0.5, 0.5)).  Out-of-range inputs
+    (f0 <= 0, f0 >= 2048 Hz, |F0*t| >= 2^43 turns, non-finite) give
+    n = 0, frac = NaN instead of a wrapped, plausible-looking phase."""
     return _PhaseF0T.apply(f0, t_ticks)
 
 

@@ -69,14 +69,14 @@ class SolveDiag(NamedTuple):
 def segment_sum_plain(x, perm, offsets):
     """(K_e, M) sums of the rows of ``x`` (N, M) over each segment of the
     CSR (perm, offsets), rows added in ascending order from zero — the
-    plain PyTorch version of kernel K2 (CPU ``index_add_`` adds rows in
-    index order)."""
+    plain PyTorch version of kernel K2 (CPU ``index_add`` adds rows in
+    index order).  Out of place: it leaves its inputs alone."""
     k_e = offsets.numel() - 1
     counts = (offsets[1:] - offsets[:-1]).to(torch.int64)
     seg_of = torch.repeat_interleave(
         torch.arange(k_e, device=x.device), counts)
     out = torch.zeros((k_e, x.shape[1]), dtype=x.dtype, device=x.device)
-    return out.index_add_(0, seg_of, x[perm.to(torch.int64)])
+    return out.index_add(0, seg_of, x[perm.to(torch.int64)])
 
 
 def segment_sum_cuda(x, perm, offsets):
@@ -103,18 +103,52 @@ def segment_sum_cuda(x, perm, offsets):
     return out
 
 
+@torch.library.custom_op("pint_tpu_torch::segment_sum", mutates_args=(),
+                         device_types="cpu")
+def _segment_sum_op(x: torch.Tensor, perm: torch.Tensor,
+                    offsets: torch.Tensor) -> torch.Tensor:
+    return segment_sum_plain(x, perm, offsets)
+
+
+@_segment_sum_op.register_kernel("cuda")
+def _(x, perm, offsets):
+    return segment_sum_cuda(x, perm, offsets)
+
+
+@_segment_sum_op.register_fake
+def _(x, perm, offsets):
+    return x.new_empty((offsets.shape[0] - 1, x.shape[1]))
+
+
+def _unbatched(name, in_dims, which):
+    """Raise unless the arguments at positions ``which`` are unbatched:
+    the batching rules batch the data, never the structure."""
+    if any(in_dims[i] is not None for i in which):
+        raise NotImplementedError(
+            f"{name}: no batching rule for a batched structure argument")
+
+
+@_segment_sum_op.register_vmap
+def _(info, in_dims, x, perm, offsets):
+    """The points fold into the columns: (B, N, M) becomes (N, B M), one
+    K2 launch whatever B (each column's sum is the same either way)."""
+    _unbatched("segment_sum", in_dims, (1, 2))
+    x = x.movedim(in_dims[0], 1)
+    n, b, m = x.shape
+    out = _segment_sum_op(x.reshape(n, b * m), perm, offsets)
+    return out.reshape(out.shape[0], b, m), 1
+
+
 def segment_sum_fixed_order(x, perm, offsets):
     """Segment sums of ``x`` ((N,) or (N, M)) in a fixed order: K2 for
-    CUDA tensors, the plain version for CPU tensors."""
+    CUDA tensors, the plain version for CPU tensors.  Under
+    ``torch.func.vmap`` a batched ``x`` is one call (one launch)."""
     vec = x.dim() == 1
     x2 = x[:, None] if vec else x
-    if x2.device.type == "cuda":
-        out = segment_sum_cuda(x2, perm, offsets)
-    elif x2.device.type == "cpu":
-        out = segment_sum_plain(x2, perm, offsets)
-    else:
+    if x2.device.type not in ("cuda", "cpu"):
         raise ValueError(f"segment_sum_fixed_order: no version for "
                          f"{x2.device}")
+    out = _segment_sum_op(x2, perm, offsets)
     return out[:, 0] if vec else out
 
 
@@ -296,6 +330,154 @@ def noise_gram_precompute(sigma, U, phi):
     parameter touches the noise model)."""
     phi_inv, _ = _phi_terms(phi)
     return _weighted_gram(U, 1.0 / sigma**2) + phi_inv
+
+
+# --------------------------------------------------------------------------
+# Woodbury chi^2 against a prebuilt capacity factor (kernel K8)
+# --------------------------------------------------------------------------
+
+#: kernel K8 (replaces the r-dependent work of pint_tpu linalg.py:381
+#: woodbury_chi2_logdet_pre), batched over residual vectors
+K8 = CudaKernel(
+    "woodbury_chi2_pre", "woodbury_pre.cu", "woodbury_chi2_pre_launch",
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5)
+
+
+class WoodburyPre(NamedTuple):
+    """The pieces of the Woodbury chi^2 that do not depend on the
+    residuals, built once for constant (sigma, U, phi) — a chi^2 grid
+    whose noise parameters are all frozen (pint_tpu linalg.WoodburyPre).
+    ``U`` stays a :class:`StructuredU` (the reference densifies it): its
+    ECORR epoch block is ~6/7 of the columns of the B1855-like basis and
+    enters every product as segment sums.  ``chol_upper`` is L^T, the
+    layout kernel K8 reads L's columns in."""
+
+    nvec: torch.Tensor        # (N,) sigma^2
+    U: object                 # StructuredU or dense (N, K)
+    chol_lower: torch.Tensor  # (K, K) lower Cholesky factor L of the capacity
+    logdet: torch.Tensor      # logdet C
+    chol_upper: torch.Tensor  # (K, K) L^T, contiguous
+
+
+def woodbury_precompute(sigma, U, phi):
+    """The capacity matrix's Cholesky factor and logdet C for constant
+    (sigma, U, phi), phi a (K,) weight vector; call it once, outside any
+    transform."""
+    nvec, L, logdet_phi = _capacity(sigma, U, phi)
+    logdet = (torch.sum(torch.log(nvec)) + logdet_phi
+              + 2.0 * torch.sum(torch.log(torch.diagonal(L))))
+    return WoodburyPre(nvec, U, L, logdet, L.T.contiguous())
+
+
+def _basis_parts(U, n, device):
+    """(dense pre, perm, offsets, dense post) of a dense or structured
+    basis: a dense basis is all ``pre``, with no epoch."""
+    if isinstance(U, StructuredU):
+        return U.pre, U.perm, U.offsets, U.post
+    i32 = dict(dtype=torch.int32, device=device)
+    return (U, torch.zeros(0, **i32), torch.zeros(1, **i32),
+            torch.zeros((n, 0), dtype=torch.float64, device=device))
+
+
+def woodbury_chi2_pre_plain(r, nvec, pre, perm, offsets, post, lt):
+    """chi^2 of r (N,) or (G, N) against C = N + U Phi U^T from the
+    upper factor ``lt`` = L^T of the capacity matrix: the plain PyTorch
+    version of kernel K8, the reference's lines (pint_tpu
+    linalg.py:381-388) with U = [pre | epochs | post]:
+
+        chi2 = sum r^2 / n - (U^T N^-1 r) . cho_solve(L, U^T N^-1 r)."""
+    ninv_r = r / nvec
+    y = ninv_r.T if r.dim() == 2 else ninv_r
+    y2 = y if y.dim() == 2 else y[:, None]
+    ut = torch.cat([pre.T @ y, segment_sum_plain(y2, perm, offsets)
+                    .reshape((-1,) + tuple(y.shape[1:])), post.T @ y])
+    x = cho_solve(lt.T, ut)
+    return torch.sum(r * ninv_r, dim=-1) - torch.sum(ut * x, dim=0)
+
+
+def k8_shared_bytes(k, k_dense):
+    """Shared memory of one K8 block: the K right-hand sides, the 8
+    warps' partial sums of the dense columns and 256 partial sums."""
+    return 8 * (k + 8 * max(k_dense, 1) + 256)
+
+
+def woodbury_chi2_pre_cuda(r, nvec, pre, perm, offsets, post, lt):
+    """Kernel K8 on CUDA tensors: chi^2 of r (N,) or (G, N) in one
+    launch, one block per residual vector; raises on what it does not
+    take."""
+    f64 = tuple(t.contiguous() for t in (r, nvec, pre, post, lt))
+    i32 = tuple(t.contiguous() for t in (perm, offsets))
+    dev = _check_cuda("woodbury_chi2_pre_cuda", f64)
+    if any(t.device != dev or t.dtype != torch.int32 or t.dim() != 1
+           for t in i32):
+        raise ValueError("woodbury_chi2_pre_cuda: perm and offsets must "
+                         "be 1-D int32 on the device")
+    r, nvec, pre, post, lt = f64
+    perm, offsets = i32
+    batched = r.dim() == 2
+    g = r.shape[0] if batched else 1
+    n = nvec.shape[0]
+    k_pre, k_post, k_e = pre.shape[1], post.shape[1], offsets.numel() - 1
+    k = k_pre + k_e + k_post
+    if r.shape[-1] != n or r.dim() not in (1, 2) or pre.shape[0] != n \
+            or post.shape[0] != n or lt.shape != (k, k) \
+            or perm.numel() > n or n == 0 or g == 0:
+        raise ValueError("woodbury_chi2_pre_cuda: r (N,) or (G, N), nvec "
+                         "(N,), pre (N, K_pre), post (N, K_post), lt (K, K)")
+    if k8_shared_bytes(k, k_pre + k_post) > K5_SHARED_BYTES:
+        raise ValueError(f"woodbury_chi2_pre_cuda: K = {k} needs more "
+                         "shared memory than a block has")
+    chi2 = torch.empty((g,) if batched else (), dtype=torch.float64,
+                       device=dev)
+    K8.launch(dev, r.data_ptr(), nvec.data_ptr(), pre.data_ptr(),
+              perm.data_ptr(), offsets.data_ptr(), post.data_ptr(),
+              lt.data_ptr(), chi2.data_ptr(), g, n, k_pre, k_e, k_post)
+    return chi2
+
+
+@torch.library.custom_op("pint_tpu_torch::woodbury_chi2_pre",
+                         mutates_args=(), device_types="cpu")
+def _woodbury_chi2_pre_op(r: torch.Tensor, nvec: torch.Tensor,
+                          pre: torch.Tensor, perm: torch.Tensor,
+                          offsets: torch.Tensor, post: torch.Tensor,
+                          lt: torch.Tensor) -> torch.Tensor:
+    return woodbury_chi2_pre_plain(r, nvec, pre, perm, offsets, post, lt)
+
+
+@_woodbury_chi2_pre_op.register_kernel("cuda")
+def _(r, nvec, pre, perm, offsets, post, lt):
+    return woodbury_chi2_pre_cuda(r, nvec, pre, perm, offsets, post, lt)
+
+
+@_woodbury_chi2_pre_op.register_fake
+def _(r, nvec, pre, perm, offsets, post, lt):
+    return r.new_empty(r.shape[:-1])
+
+
+@_woodbury_chi2_pre_op.register_vmap
+def _(info, in_dims, r, nvec, pre, perm, offsets, post, lt):
+    """A batch of residual vectors is one K8 launch, one block each."""
+    _unbatched("woodbury_chi2_pre", in_dims, range(1, 7))
+    r = r.movedim(in_dims[0], 0)
+    lead = r.shape[:-1]
+    out = _woodbury_chi2_pre_op(r.reshape(-1, r.shape[-1]), nvec, pre, perm,
+                                offsets, post, lt)
+    return out.reshape(lead), 0
+
+
+def woodbury_chi2_logdet_pre(r, pre: WoodburyPre):
+    """(chi2, logdet C) of r (N,) or (G, N) against a
+    :func:`woodbury_precompute` result: only the r-dependent work runs,
+    by kernel K8 on CUDA and its plain version on the CPU; under
+    ``torch.func.vmap`` a batch of points is one call (one launch)."""
+    if r.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"woodbury_chi2_logdet_pre: no version for "
+                         f"{r.device}")
+    dense_pre, perm, offsets, post = _basis_parts(pre.U, pre.nvec.shape[0],
+                                                  pre.nvec.device)
+    chi2 = _woodbury_chi2_pre_op(r, pre.nvec, dense_pre, perm, offsets,
+                                 post, pre.chol_upper)
+    return chi2, pre.logdet
 
 
 def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
@@ -862,54 +1044,107 @@ def kron_chi2_logdet(st: RaggedStack, kp: KronPhi):
 #: kernel K7 (replaces pint_tpu fitter.py:152-158 inside wls_gn_solve)
 K7 = CudaKernel(
     "wls_whiten", "wls_whiten.cu", "wls_whiten_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 2)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4)
 
 #: the widest design K7 takes: its second pass holds P + 1 column sums
 #: in shared memory, under the 48 kB a launch gets without opting in
 K7_MAX_COLS = 4096
+#: the most points one K7 launch takes (its grid's second dimension)
+K7_MAX_POINTS = 65535
 
 
 def wls_whiten_plain(r, J, err):
     """(rw, Jn, norms, chi2) of the WLS step, the JAX package's lines in
     plain PyTorch: w = 1/err, rw = r w, Jn = (J w) / norms with the
-    column norms' zeros replaced by 1, chi2 = sum rw^2."""
+    column norms' zeros replaced by 1, chi2 = sum rw^2.  r (..., N),
+    J (..., N, P), err (N,) or (..., N): leading dimensions are points."""
     w = 1.0 / err
     rw = r * w
-    Jw = J * w[:, None]
-    norms = torch.sqrt(torch.sum(Jw * Jw, dim=0))
+    Jw = J * w[..., None]
+    norms = torch.sqrt(torch.sum(Jw * Jw, dim=-2))
     norms = torch.where(norms == 0, torch.ones_like(norms), norms)
-    return rw, Jw / norms[None, :], norms, torch.sum(rw * rw)
+    return rw, Jw / norms[..., None, :], norms, torch.sum(rw * rw, dim=-1)
 
 
 def wls_whiten_cuda(r, J, err):
-    """Kernel K7 on CUDA tensors; the outputs of
-    :func:`wls_whiten_plain`, the column sums in a fixed order."""
+    """Kernel K7 on CUDA tensors: r (N,) and J (N, P), or G points
+    stacked, r (G, N) and J (G, N, P); err (N,) shared by the points or
+    (G, N).  The outputs of :func:`wls_whiten_plain`, the column sums in
+    a fixed order, one launch for all points."""
     ts = tuple(t.contiguous() for t in (r, J, err))
     dev = _check_cuda("wls_whiten_cuda", ts)
     r, J, err = ts
-    n, p = J.shape
-    if r.shape != (n,) or err.shape != (n,) or n == 0:
-        raise ValueError("wls_whiten_cuda: r (N,), J (N, P), err (N,) "
-                         "with N > 0")
-    if p > K7_MAX_COLS:
-        raise ValueError(f"wls_whiten_cuda: P = {p} > {K7_MAX_COLS}")
+    batched = r.dim() == 2
+    g = r.shape[0] if batched else 1
+    n, p = J.shape[-2:]
+    lead = (g,) if batched else ()
+    if r.shape != lead + (n,) or J.dim() != r.dim() + 1 \
+            or err.shape not in ((n,), lead + (n,)) or n == 0 or g == 0:
+        raise ValueError("wls_whiten_cuda: r (N,) or (G, N), J (N, P) or "
+                         "(G, N, P), err (N,) or as r, with N, G > 0")
+    if p > K7_MAX_COLS or g > K7_MAX_POINTS:
+        raise ValueError(f"wls_whiten_cuda: P = {p} > {K7_MAX_COLS} or "
+                         f"G = {g} > {K7_MAX_POINTS}")
     f64 = dict(dtype=torch.float64, device=dev)
-    partial = torch.empty((K7.call("wls_whiten_splits", n), p + 1), **f64)
-    rw = torch.empty((n,), **f64)
-    Jn = torch.empty((n, p), **f64)
-    norms = torch.empty((p,), **f64)
-    chi2 = torch.empty((1,), **f64)
+    partial = torch.empty((g, K7.call("wls_whiten_splits", n), p + 1), **f64)
+    rw = torch.empty(lead + (n,), **f64)
+    Jn = torch.empty(lead + (n, p), **f64)
+    norms = torch.empty(lead + (p,), **f64)
+    chi2 = torch.empty(lead, **f64)
     K7.launch(dev, r.data_ptr(), J.data_ptr(), err.data_ptr(),
               partial.data_ptr(), rw.data_ptr(), Jn.data_ptr(),
-              norms.data_ptr(), chi2.data_ptr(), n, p)
-    return rw, Jn, norms, chi2[0]
+              norms.data_ptr(), chi2.data_ptr(), g, n, p,
+              n if err.dim() == 2 else 0)
+    return rw, Jn, norms, chi2
+
+
+@torch.library.custom_op("pint_tpu_torch::wls_whiten", mutates_args=(),
+                         device_types="cpu")
+def _wls_whiten_op(r: torch.Tensor, J: torch.Tensor, err: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    return wls_whiten_plain(r, J, err)
+
+
+@_wls_whiten_op.register_kernel("cuda")
+def _(r, J, err):
+    return wls_whiten_cuda(r, J, err)
+
+
+@_wls_whiten_op.register_fake
+def _(r, J, err):
+    return (r.new_empty(r.shape), J.new_empty(J.shape),
+            J.new_empty(J.shape[:-2] + J.shape[-1:]),
+            r.new_empty(r.shape[:-1]))
+
+
+@_wls_whiten_op.register_vmap
+def _(info, in_dims, r, J, err):
+    """The points stack in front: (B, N) and (B, N, P) against an
+    unbatched err (N,) are one K7 launch over B designs."""
+    b = info.batch_size
+
+    def front(x, d):
+        return x.movedim(d, 0) if d is not None \
+            else x.expand((b,) + x.shape)
+
+    r, J = front(r, in_dims[0]), front(J, in_dims[1])
+    lead, (n, p) = r.shape[:-1], J.shape[-2:]
+    if in_dims[2] is None and err.dim() == 1:
+        e2 = err
+    else:
+        e2 = front(err, in_dims[2]).expand(lead + (n,)).reshape(-1, n)
+    rw, Jn, norms, chi2 = _wls_whiten_op(r.reshape(-1, n),
+                                         J.reshape(-1, n, p), e2)
+    return ((rw.reshape(lead + (n,)), Jn.reshape(lead + (n, p)),
+             norms.reshape(lead + (p,)), chi2.reshape(lead)),
+            (0, 0, 0, 0))
 
 
 def wls_whiten(r, J, err):
     """The whitening pass: K7 for CUDA tensors, the plain version for
-    CPU tensors."""
-    if r.device.type == "cuda":
-        return wls_whiten_cuda(r, J, err)
-    if r.device.type == "cpu":
-        return wls_whiten_plain(r, J, err)
-    raise ValueError(f"wls_whiten: no version for {r.device}")
+    CPU tensors.  Under ``torch.func.vmap`` a batch of points is one
+    call (one launch)."""
+    if r.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"wls_whiten: no version for {r.device}")
+    return _wls_whiten_op(r, J, err)

@@ -36,6 +36,20 @@ INGEST_GEOMETRY_REL = 1e-14
 _EPS = float(np.finfo(np.float64).eps)
 
 
+#: chi^2 of an unfinished refit, relative: a grid point's after its
+#: fixed 3 Gauss-Newton steps, and the chi^2 a downhill fit accepts at
+#: each iteration.  Away from the minimum chi^2 is first order in the
+#: iterate, and the iterate carries the step's rounding (eps * kappa in
+#: the weak directions), so the nominal 1e-8 is not the scale: on the
+#: 10k par/tim the reference's own chi^2 moves by 1.5e-8 (GLS grid) and
+#: 1.2e-8 (WLS grid) with one more step, and by up to 6.0e-8 under a
+#: one-ulp change of the downhill start (GLS from SINI = 0.99), as
+#: ``tools/export_torch_grid_case.py`` prints and stores.  1e-7 is
+#: Delta chi^2 ~ 8e-4 at chi^2 ~ 8e3: a chi^2 off by more than that,
+#: a dropped term or a misweighted row, fails.
+REFIT_CHI2_REL = 1e-7
+
+
 def conditioning_bound(cond_log10: float) -> float:
     """2 * eps * kappa for kappa = 10**cond_log10."""
     return 2.0 * _EPS * 10.0 ** float(cond_log10)
@@ -57,6 +71,22 @@ def wls_normal_cond_log10(svd_cond_log10: float) -> float:
     values are the square roots of that matrix's eigenvalues, and the
     Gauss-Newton iterate moves with them as the GLS one does."""
     return 2.0 * float(svd_cond_log10)
+
+
+def values_sigma_ulp(got, ref, sigma) -> float:
+    """max |got - ref| / sigma with each difference first reduced by one
+    float64 ulp of the reference value (floored at 0).
+
+    A chi^2 grid refits each point by a fixed number of Gauss-Newton
+    steps, and a step smaller than half an ulp of a parameter leaves it
+    where it was: two correct implementations whose steps round on
+    either side of the half ulp differ by one ulp.  For PB = 1.07e6 s
+    (ulp 2.3e-10 s) that is 5.7e-5 sigma at 10^4 TOAs, above the WLS
+    grid's conditioning bound (1.9e-5); it is seen on one point of the
+    16 x 16 (F0, F1) grid on the CPU."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.maximum(np.abs(got - ref) - np.spacing(np.abs(ref)), 0.0)
+    return float(np.max(d / np.asarray(sigma, np.float64)))
 
 
 def fit_errors(values, uncs, chi2_iters, ref_values, ref_uncs,
@@ -120,6 +150,14 @@ KRON_PULSAR_REL = 1e-10
 #: ~ N / 256 + 8 + splits additions (~60 at N = 10^4) and torch.sum's is
 #: pairwise, so both are within ~60 eps of the exact sum.
 WLS_WHITEN_REL = 1e-13
+#: chi^2 against a prebuilt Woodbury factor (kernel K8, its plain
+#: version, the reference's woodbury_chi2_logdet_pre), as |d chi2| over
+#: sum r^2 / n, the larger of the two terms chi2 = sum r^2/n - |z|^2
+#: that cancel: the three sum U^T N^-1 r in different orders (segment
+#: sums against the reference's dense indicator columns) and reach z by
+#: a forward substitution or cho_solve, each ~K eps of that sum (K = 461
+#: columns: ~1e-13); 1e-15 is what the CPU shows.
+WOODBURY_PRE_REL = 1e-12
 #: K6 against its plain version on the card: positions, momenta and
 #: step sizes, in units in the last place (the two use the same
 #: association and order; only the math library's exp / log may differ)

@@ -1,4 +1,4 @@
-"""Kernels K1-K7 on the card against their plain PyTorch versions.
+"""Kernels K1-K8 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -424,3 +424,137 @@ def test_hmc_on_card_counts_launches(card):
     assert np.all(np.isfinite(res.samples))
     assert K5.launches == K5B.launches == 1 + 4 * 3
     assert K6.launches == 4 * (2 * 3 + 1)
+
+
+def _k8_case(card, g, n, k_pre, k_e, seed, outside=True):
+    """A structured basis (k_pre dense columns, k_e epochs, the offset
+    column) with its Woodbury factor, and g residual vectors."""
+    from pint_tpu_torch import linalg as tl
+
+    rng = np.random.default_rng(seed)
+    seg = rng.integers(0, k_e + (1 if outside else 0), n) if k_e \
+        else np.zeros(n, np.int64)
+    pre = rng.standard_normal((n, k_pre))
+    post = np.ones((n, 1))
+    su = tl.structured_from_blocks(pre, seg, k_e, post, card)
+    sigma = torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device=card)
+    phi = torch.tensor(np.concatenate([
+        10.0 ** rng.uniform(-14, -12, k_pre), np.full(k_e, 1e-13),
+        [1e30]]), device=card)
+    pre_w = tl.woodbury_precompute(sigma, su, phi)
+    R = torch.tensor(rng.standard_normal((g, n)) * 1e-6 + 3e-6, device=card)
+    return pre_w, R
+
+
+@pytest.mark.parametrize("g", [1, 16, 256])
+@pytest.mark.parametrize("basis", ["epochs", "no_epochs", "all_in_epochs"])
+def test_k8_against_plain_and_deterministic(card, g, basis):
+    """K8 against its plain version at the grid's shape (N = 10^4, 60
+    dense columns + the offset, 400 epochs): within
+    tolerances.WOODBURY_PRE_REL of sum r^2/n, bit-identical run to run,
+    one launch for all g vectors; an epoch-free basis and one where
+    every row lies in an epoch too."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    k_e = 0 if basis == "no_epochs" else 400
+    pre, R = _k8_case(card, g, 10_000, 60, k_e, seed=g,
+                      outside=basis == "epochs")
+    parts = tl._basis_parts(pre.U, R.shape[1], card)
+    k0 = tl.K8.launches
+    a = tl.woodbury_chi2_pre_cuda(R, pre.nvec, *parts, pre.chol_upper)
+    b = tl.woodbury_chi2_pre_cuda(R, pre.nvec, *parts, pre.chol_upper)
+    assert tl.K8.launches == k0 + 2
+    p = tl.woodbury_chi2_pre_plain(R, pre.nvec, *parts, pre.chol_upper)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    scale = torch.sum(R * R / pre.nvec, dim=1)
+    assert float(torch.max(torch.abs(a - p) / scale)) <= tol.WOODBURY_PRE_REL
+    one = tl.woodbury_chi2_logdet_pre(R[0], pre)[0]
+    assert one.shape == () and float(torch.abs(one - a[0]) / scale[0]) \
+        <= tol.WOODBURY_PRE_REL
+
+
+def test_k8_failed_factor_is_nan(card):
+    from pint_tpu_torch import linalg as tl
+
+    pre, R = _k8_case(card, 3, 500, 4, 10, seed=1)
+    bad = pre._replace(chol_upper=torch.full_like(pre.chol_upper, np.nan))
+    assert torch.all(torch.isnan(tl.woodbury_chi2_logdet_pre(R, bad)[0]))
+
+
+def test_batched_k1_k2_k7_against_plain(card):
+    """Under torch.func.vmap on the card: one launch per batched call,
+    K1 and K2 bit-identical to their plain versions, K7 within
+    tolerances.WLS_WHITEN_REL."""
+    from pint_tpu_torch import fixedpoint as fp
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    rng = np.random.default_rng(3)
+    t = torch.tensor(rng.integers(-2**50, 2**50, 5000))
+    f0 = torch.tensor(186.49408156698235 + rng.normal(0, 1e-9, 64))
+    k1 = fp.K1.launches
+    n, frac = torch.func.vmap(lambda f: fp.phase_f0_t(f, t.to(card)))(
+        f0.to(card))
+    assert fp.K1.launches == k1 + 1
+    n_p, frac_p = fp.phase_f0_t_plain(f0[:, None], t)
+    assert torch.equal(n.cpu(), n_p)
+    assert torch.equal(frac.cpu().view(torch.int64), frac_p.view(torch.int64))
+
+    seg = rng.integers(0, 401, 5000)
+    perm, offsets = (torch.tensor(a) for a in tl.epoch_csr(seg, 400))
+    x = torch.tensor(rng.standard_normal((32, 5000, 8)))
+    k2 = tl.K2.launches
+    out = torch.func.vmap(lambda y: tl.segment_sum_fixed_order(
+        y, perm.to(card), offsets.to(card)))(x.to(card))
+    assert tl.K2.launches == k2 + 1
+    for i in (0, 31):
+        ref = tl.segment_sum_plain(x[i], perm, offsets)
+        assert torch.equal(out[i].cpu().view(torch.int64),
+                           ref.view(torch.int64))
+
+    r = torch.tensor(rng.standard_normal((32, 5000)) * 1e-6, device=card)
+    J = torch.tensor(rng.standard_normal((32, 5000, 8)), device=card)
+    err = torch.tensor(rng.uniform(0.5, 2.0, 5000) * 1e-6, device=card)
+    k7 = tl.K7.launches
+    got = torch.func.vmap(lambda a, b: tl.wls_whiten(a, b, err))(r, J)
+    assert tl.K7.launches == k7 + 1
+    ref = tl.wls_whiten_plain(r, J, err)
+    assert torch.equal(got[0], ref[0])
+    for a, b in zip(got[1:], ref[1:]):
+        assert tol.vector_rel(a.cpu().numpy(), b.cpu().numpy()) \
+            <= tol.WLS_WHITEN_REL
+
+
+@pytest.mark.parametrize("kind", ["gls", "wls"])
+def test_grid_launches_independent_of_points(card, kind):
+    """A grid call over 2 or 8 points launches each kernel of its path
+    as often: no kernel runs once per point; K8 runs once per GLS grid
+    call, for the final chi^2."""
+    from pint_tpu_torch import grid
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch.convert import (B1855_PAR, B1855_TIM,
+                                        B1855_WHITE_PAR)
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.models.builder import get_model, get_model_and_toas
+
+    model, toas = get_model_and_toas(str(B1855_PAR), str(B1855_TIM))
+    if kind == "gls":
+        names, kernels = ["M2", "SINI"], (K1, tl.K2, tl.K8)
+        pts = np.stack([0.26 + np.linspace(-1, 1, 8) * 0.0075,
+                        np.full(8, 0.999)], axis=1)
+    else:
+        model = get_model(str(B1855_WHITE_PAR))
+        names, kernels = ["F0", "F1"], (K1, tl.K7)
+        pts = np.stack([model.values["F0"] + np.linspace(-1, 1, 8) * 5e-14,
+                        np.full(8, model.values["F1"])], axis=1)
+    fn, _, _ = grid.make_grid_fn(toas, model, names)
+    counts = []
+    for g in (2, 8):
+        before = [k.launches for k in kernels]
+        chi2, _ = fn(pts[:g])
+        assert torch.all(torch.isfinite(chi2))
+        counts.append([k.launches - b for k, b in zip(kernels, before)])
+    assert counts[0] == counts[1] and all(c > 0 for c in counts[0])
+    if kind == "gls":  # K8 serves the final chi^2 alone
+        assert counts[0][2] == 1

@@ -11,6 +11,9 @@ and carried across as plain arrays
 - ``ragged``: three 40-TOA pulsars with red noise and one 35-TOA pulsar
   without, which samples no parameter.
 
+A third, ``loud`` (24 pulsars, a GWB at 1e-13), goes through the port
+alone: its sampled amplitude is held to its own likelihood grid's peak.
+
 Both go through pint_tpu's ``GWBPosterior(CommonProcess(pairs,
 nmodes=4))`` and the port's with ``device="cpu"`` (the kernels' plain
 versions).  Tolerances: lnprob 1e-10 relative and its gradient within
@@ -304,34 +307,51 @@ def test_run_nuts_injected_draws_match_jax(small_posteriors):
     assert abs(rt.accept_rate - rj.accept_rate) <= 1e-9
 
 
-def test_posterior_peak_consistent_with_grid(small_posteriors):
-    """tests/test_kron_hmc.py:389-409 on the port's own generator: the
-    sampled amplitude's median lands within 1 of the grid peak, and the
-    best sampled point is no worse than the grid's best by more than 1.
+def _loud():
+    """24 pulsars x 40 TOAs with 4-mode red noise and a GWB at 1e-13 over
+    4 modes: the amplitude likelihood peaks (at -13.0 on the grid below,
+    44 below it at -13.25), and the pairs' cross-correlations rule out
+    the mode in which every pulsar's red noise takes the common power
+    (with 4, 8, 12 or 16 pulsars at 1e-13, or 4 at 3e-13, chains still
+    settle there on some seeds: medians 1.3 to 3.0 below the peak)."""
+    pairs = make_fake_pta(24, 40, seed=5, extra_par=RED)
+    add_gwb([t for _, t in pairs], [m for m, _ in pairs], 1e-13,
+            rng=pta_injection_seed(5, 24), nmodes=4)
+    return pairs
 
-    On this array the likelihood in log10 A is flat from -18 to ~-14.5,
-    so the median of two 120-draw chains swings with the seed in both
-    packages (seeds 0-5: JAX -14.49, -14.47, -16.20, -15.74, -13.67,
-    -13.98; the port -13.30, -14.40, -15.66, -17.00, -14.38, -17.00
-    against the grid peak -15.5).  The reference's seed 3 is within 1
-    on JAX's stream and not on the port's; seed 2 is within 1 on both.
-    That the transition itself is JAX's is shown by the injected-draw
-    test above."""
-    _, tpost = small_posteriors
+
+def test_posterior_peak_consistent_with_grid(small_posteriors):
+    """tests/test_kron_hmc.py:389-409 on the port's own generator, at the
+    reference's seed 3: the sampled amplitude's median lands within 1 of
+    the grid peak, and the best sampled point is no worse than the
+    grid's best by more than 1.
+
+    The reference's 4-pulsar array has a likelihood flat in log10 A
+    below ~-14.5, so there the median swings with the seed in both
+    packages (ROADMAP queue 3 item 3); this array's likelihood has a
+    peak.  Medians of log10 A on seeds 0-5 against the grid peak -13.0
+    (2 chains, 80 + 120 draws, 6 leapfrog steps): JAX -13.86, -13.05,
+    -13.04, -13.04, -13.03, -12.98; the port -13.25, -13.08, -13.09,
+    -13.04, -13.0, -13.0."""
+    tpost = GWBPosterior(CommonProcess(
+        pta_case_from_arrays(pta_case_arrays(_loud())), nmodes=NMODES,
+        device=CPU))
     amps = np.linspace(-15.5, -12.5, 13)
     lnl = tpost.crn.lnlike_grid(amps, [GWB_GAMMA])[:, 0]
     grid_peak = amps[int(np.argmax(lnl))]
+    assert lnl.max() - lnl[0] > 100.0  # a peak, not a flat tail
     res = run_nuts(tpost, num_warmup=80, num_samples=120, n_chains=2,
-                   chunk=50, num_leapfrog=6, seed=2)
+                   chunk=50, num_leapfrog=6, seed=3)
     assert res.samples.shape == (120, 2, tpost.ndim)
     assert 0.05 < res.accept_rate <= 1.0
     assert abs(np.median(res.flat()[:, 0]) - grid_peak) < 1.0
     assert res.max_posterior()[1] >= lnl.max() - 1.0
     # the generator's draws are the run's: same seed, same chain
-    again = run_nuts(tpost, num_warmup=2, num_samples=2, n_chains=2,
+    _, spost = small_posteriors
+    again = run_nuts(spost, num_warmup=2, num_samples=2, n_chains=2,
                      chunk=2, num_leapfrog=3, seed=3)
     gen = torch.Generator(device=CPU).manual_seed(3)
-    same = run_nuts(tpost, num_warmup=2, num_samples=2, n_chains=2,
+    same = run_nuts(spost, num_warmup=2, num_samples=2, n_chains=2,
                     chunk=2, num_leapfrog=3, seed=3, generator=gen)
     assert np.array_equal(again.samples, same.samples)
 

@@ -75,6 +75,27 @@ def test_hmc_modules_are_scanned():
         <= set(_modules())
 
 
+def test_grid_and_downhill_modules_are_scanned():
+    assert {"pint_tpu_torch.grid", "pint_tpu_torch.downhill"} \
+        <= set(_modules())
+
+
+def test_k8_wrapper_never_falls_back():
+    """K8's wrapper raises on CPU tensors; its plain version runs only
+    through the dispatcher, for CPU tensors."""
+    from pint_tpu_torch import linalg as tl
+
+    f64 = dict(dtype=torch.float64)
+    i32 = dict(dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.woodbury_chi2_pre_cuda(
+            torch.ones((2, 4), **f64), torch.ones(4, **f64),
+            torch.ones((4, 1), **f64), torch.zeros(0, **i32),
+            torch.zeros(1, **i32), torch.ones((4, 1), **f64),
+            torch.eye(2, **f64))
+    assert tl.K8.launches == 0
+
+
 def test_ingest_modules_are_scanned():
     assert {"pint_tpu_torch.time", "pint_tpu_torch.time.mjd",
             "pint_tpu_torch.time.scales", "pint_tpu_torch.ephem",
