@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K8 and the wide forms K5w/K5bw, one nvcc per source, all started
+   (K1-K9 and the wide forms K5w/K5bw, one nvcc per source, all started
    together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
@@ -123,11 +123,26 @@ the closing ``{"ok": true, ...}`` line is not printed:
     to run, no ptxas spill; times beside the library calls and bounds
     (the kernels line takes the posterior's 4-theta row, the shape at
     which K5bw runs on the path);
-21. the ``kernels`` JSON line: per kernel its launches on its main path
+21. ``mcmc gls`` / ``mcmc wls``: the timing posterior of the par/tim
+    case (``BayesianTiming``: the par with ECORR and red noise fixed;
+    the white par), its model fitted on the card and then set to JAX's
+    fitted bits, sampled by ``run_chain`` with 32 walkers x 200 steps
+    and JAX's draws, held to ``b1855_mcmc_answers.npz`` up to the first
+    near tie (``tolerances.near_ties``): positions bit-identical, every
+    accept decision the same, lnp within ``tolerances.mcmc_lnp_limit``;
+    the Kepler depth JAX chose; launches of K1, K2, K7, K8, K9 (K9 = 4
+    per step); cold and warm wall, posterior evaluations per second,
+    busy share, peak memory;
+22. ``k9``: K9 against its plain version at the GLS chain's first
+    half-move (16 x 10) and at 4096 x 64: bit-identical and
+    bit-identical run to run; time of a half-move, plain time, bound;
+    ``mcmc autocorr``: ``EnsembleSampler.run_mcmc_autocorr`` on a 2-D
+    Gaussian from the generator: converged, variance within 15 %;
+23. the ``kernels`` JSON line: per kernel its launches on its main path
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
-    K6, the wide case for K5w and K5bw), error against the plain
-    version, time, plain-version
+    K6, the wide case for K5w and K5bw, the GLS chain for K9), error
+    against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
     computes the same function.
 
@@ -273,10 +288,11 @@ def phase_build():
     from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
     from pint_tpu_torch.linalg import K2, K3, K5, K7, K8
+    from pint_tpu_torch.sampler import K9
 
     t0 = time.time()
     libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7,
-                                           K8)])
+                                           K8, K9)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -2048,6 +2064,284 @@ def phase_k5_wide(wide):
     return out
 
 
+#: the ensemble chains of the par/tim case: par, fitter, chain length
+MCMC_GROUPS = {"K1": ["phase_f0_t"], "K2": ["segment_sum"],
+               "K8": ["woodbury_chi2"], "K9": ["stretch_"],
+               "gemm": ["gemm", "gemv"]}
+
+
+def _kepler_iters(prepared):
+    """The Newton depth of a prepared model's Kepler solve."""
+    for sub in prepared.ctx.values():
+        if isinstance(sub, dict) and "kepler_iters" in sub:
+            return int(sub["kepler_iters"])
+    return None
+
+
+def phase_mcmc(kind, model, toas, ref):
+    """The timing posterior's ensemble chain on the card (``gls``: the
+    par, ECORR and red noise fixed; ``wls``: the white par), held to the
+    JAX answers of ``b1855_mcmc_answers.npz``: the model fitted on the
+    card (its distance from JAX's fit printed), then set to JAX's fitted
+    bits so both hold the same priors; the Kepler depth JAX chose, and
+    the ECC prior box inside its class; ``BayesianTiming`` and
+    ``run_chain`` of 32 walkers x 200 steps with JAX's draws.  Up to the
+    first near tie (``tolerances.near_ties``): positions bit-identical,
+    every decision the same, lnp within ``tolerances.mcmc_lnp_limit``;
+    the acceptance fraction.  Launches of K1, K2, K7, K8, K9 during the
+    chain (K9 = 4 per step); cold and warm wall, posterior evaluations
+    per second (walkers x steps / wall, bench_mcmc's unit), busy share
+    and device time by group of a warm 20-step chain, peak memory."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.bayesian import BayesianTiming
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7, K8
+    from pint_tpu_torch.models.binary.kepler import newton_iters_for
+    from pint_tpu_torch.sampler import K9, decision_margins, run_chain
+
+    names = [str(n) for n in ref[f"{kind}_param_names"]]
+    m = copy.deepcopy(model)
+    (GLSFitter if kind == "gls" else WLSFitter)(toas, m, device="cuda") \
+        .fit_toas(maxiter=3)
+    if list(m.free_params) != names:
+        raise AssertionError(f"mcmc {kind}: free parameters differ")
+    fit_sigma = max(abs(m.values[n] - v) / u for n, v, u in zip(
+        names, ref[f"{kind}_values"], ref[f"{kind}_uncertainties"]))
+    for n, v, u in zip(names, ref[f"{kind}_values"],
+                       ref[f"{kind}_uncertainties"]):
+        m.values[n] = float(v)
+        m.uncertainties[n] = float(u)
+    bt = BayesianTiming(m, toas, device="cuda")
+    depth = _kepler_iters(bt.prepared)
+    box = [bt.priors["ECC"].lo, bt.priors["ECC"].hi]
+    box_depth = newton_iters_for(max(abs(e) for e in box))
+    if not (depth == int(ref[f"{kind}_kepler_iters"]) == box_depth
+            and np.array_equal(box, ref[f"{kind}_ecc_box"])):
+        raise AssertionError(f"mcmc {kind}: Kepler depth {depth}, JAX "
+                             f"{ref[f'{kind}_kepler_iters']}, ECC box "
+                             f"{box} needs {box_depth}")
+    sx = torch.tensor(ref[f"{kind}_spread_x"], device="cuda")
+    with torch.no_grad():
+        lnp_s = torch.func.vmap(bt.lnposterior)(sx).cpu().numpy()
+    spread_ok = tol.mcmc_lnp_ok(lnp_s, ref[f"{kind}_lnpost_cho"])
+    x0 = ref[f"{kind}_x0"]
+    nsteps = int(ref["nsteps"])
+    draws = tuple(ref[f"{kind}_draw_{k}"] for k in ("u", "idx", "uacc"))
+    kernels = {"K1": K1, "K2": K2, "K7": K7, "K8": K8, "K9": K9}
+
+    def chain(n=nsteps):
+        with torch.no_grad():
+            out = run_chain(bt.lnposterior, x0, n, device="cuda",
+                            draws=tuple(d[:n] for d in draws))
+        torch.cuda.synchronize()
+        return out
+
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = chain()
+    cold_s = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    margin, lnp_prop, before = decision_margins(out, draws)
+    tie = tol.near_ties(margin, lnp_prop, before).any(axis=(1, 2))
+    upto = int(np.argmax(tie)) if tie.any() else nsteps
+    jc, jl = ref[f"{kind}_chain"], ref[f"{kind}_lnp"]
+    same_steps = np.all(np.abs(out["chain"] - jc) <= tol.MCMC_POSITION_ULPS
+                        * np.spacing(np.abs(jc)), axis=(1, 2))
+    first_diff = int(np.argmin(same_steps)) if not same_steps.all() else None
+    pos_ok = bool(same_steps[:upto].all())
+    dec_ok = bool(np.array_equal(out["accepted"][:upto],
+                                 ref[f"{kind}_accepted"][:upto]))
+    lnp_ok = tol.mcmc_lnp_ok(out["lnp"][:upto], jl[:upto])
+    fin = np.isfinite(jl[:upto])
+    lnp_err = float(np.max(np.abs(out["lnp"][:upto] - jl[:upto])[fin]
+                           / tol.mcmc_lnp_limit(jl[:upto][fin])))
+    acc = float(np.mean(out["counts"].sum(axis=1) / x0.shape[0]))
+    fmargin = np.abs(margin[np.isfinite(margin)])
+    t0 = time.time()
+    chain()
+    warm_s = time.time() - t0
+    t0 = time.time()
+    chain(20)
+    warm20_s = time.time() - t0
+    busy, dev_ms, shares = trace_breakdown(lambda: chain(20), warm20_s,
+                                           f"mcmc_{kind}", MCMC_GROUPS)
+    res = {"launches": launches, "first_near_tie_step":
+               None if upto == nsteps else upto,
+           "smallest_margin": float(fmargin.min()),
+           "positions_bit_identical_up_to_tie": pos_ok,
+           "first_step_differing": first_diff,
+           "decisions_same_up_to_tie": dec_ok, "lnp_within_limit": lnp_ok,
+           "lnp_err_over_limit": lnp_err, "spread_lnp_within_limit":
+               spread_ok, "acceptance": acc,
+           "jax_acceptance": float(ref[f"{kind}_acceptance"]),
+           "card_fit_vs_jax_sigma": fit_sigma, "kepler_iters": depth,
+           "cold_s": cold_s, "warm_s": warm_s,
+           "evals_per_s": x0.shape[0] * nsteps / warm_s,
+           "warm20_s": warm20_s, "busy": busy, "device_ms_20": dev_ms,
+           "peak_gib": peak / 2**30}
+    log(f"mcmc {kind}: {x0.shape[0]} walkers x {nsteps} steps over {names}, "
+        "at 10^4 TOAs; " + json.dumps(res) + "; device time by group "
+        + json.dumps(shares))
+    need = ("K1", "K8", "K9") if kind == "gls" else ("K1", "K9")
+    if not (pos_ok and dec_ok and lnp_ok and spread_ok):
+        raise AssertionError(f"mcmc {kind} disagrees with JAX")
+    if launches["K9"] != 4 * nsteps or not all(launches[k] > 0
+                                               for k in need):
+        raise AssertionError(f"mcmc {kind}: launches {launches}")
+    if abs(acc - res["jax_acceptance"]) > 1e-6 and upto == nsteps:
+        raise AssertionError(f"mcmc {kind}: acceptance {acc}")
+    res.update(bt=bt, draws=draws, x0=x0)
+    return res
+
+
+def phase_mcmc_autocorr():
+    """``EnsembleSampler.run_mcmc_autocorr`` on a 2-D unit Gaussian on
+    the card, from the generator (seeded 1): converged by the emcee
+    criterion, the target's variance recovered within 15 %."""
+    import torch
+
+    from pint_tpu_torch.sampler import K9, EnsembleSampler
+
+    def lnpost(x):
+        return -0.5 * torch.sum(x * x, dim=-1)
+
+    s = EnsembleSampler(lnpost, nwalkers=32, seed=1, device="cuda")
+    x0 = s.initial_ball(np.zeros(2), np.ones(2) * 0.5)
+    before = K9.launches
+    t0 = time.time()
+    chain, converged, tau = s.run_mcmc_autocorr(x0, chunk=200,
+                                                maxsteps=4000)
+    wall = time.time() - t0
+    flat = s.flatchain(burn=int(5 * np.max(tau)))
+    var = flat.var(axis=0)
+    out = {"converged": bool(converged), "steps": int(chain.shape[0]),
+           "tau": tau.tolist(), "variance": var.tolist(),
+           "acceptance": s.acceptance, "k9_launches": K9.launches - before,
+           "wall_s": wall}
+    log("mcmc autocorr: " + json.dumps(out))
+    if not (converged and np.all(np.abs(var - 1.0) <= 0.15)):
+        raise AssertionError("run_mcmc_autocorr did not converge on the "
+                             "Gaussian")
+    return out
+
+
+def _k9_case(mc):
+    """The first half-move of a chain's own inputs: (active, other, u,
+    idx, lnp, lnp_prop, u_acc) on the card."""
+    import torch
+
+    from pint_tpu_torch.sampler import stretch_propose_plain
+
+    x0 = torch.tensor(mc["x0"], device="cuda")
+    h = x0.shape[0] // 2
+    u, idx, u_acc = (torch.as_tensor(d[0, 0], device="cuda")
+                     for d in mc["draws"])
+    lnpost_v = torch.func.vmap(mc["bt"].lnposterior)
+    with torch.no_grad():
+        lnp = lnpost_v(x0[:h]).contiguous()
+        prop, _ = stretch_propose_plain(x0[:h], x0[h:], u, idx, 2.0)
+        lnp_prop = lnpost_v(prop).contiguous()
+    return (x0[:h].contiguous(), x0[h:].contiguous(), u.contiguous(),
+            idx.to(torch.int64).contiguous(), lnp, lnp_prop,
+            u_acc.contiguous())
+
+
+def _k9_synthetic(h, nd, seed=9):
+    import torch
+
+    rng = np.random.default_rng(seed)
+    scale = 10.0 ** rng.uniform(-12, 3, nd)
+    center = rng.normal(0, 1, nd) * 10.0 ** rng.uniform(-3, 3, nd)
+
+    def t(a, dtype=torch.float64):
+        return torch.tensor(np.asarray(a), dtype=dtype, device="cuda")
+    lnp = rng.normal(1.2e5, 3.0, h)
+    lnp_prop = lnp + rng.normal(0.0, 3.0, h)
+    lnp_prop[:2] = (np.nan, -np.inf)
+    return (t(center + scale * rng.standard_normal((h, nd))),
+            t(center + scale * rng.standard_normal((h, nd))),
+            t(rng.uniform(size=h)), t(rng.integers(0, h, h), torch.int64),
+            t(lnp), t(lnp_prop), t(rng.uniform(size=h)))
+
+
+def phase_k9(mc):
+    """K9 (both stages of one half-move) against its plain version at
+    the GLS chain's own first half-move (16 x 10) and at 4096 walkers x
+    64: proposals, z, walkers, lnp, flags and count bit-identical (a NaN
+    equal to a NaN) and bit-identical run to run; the time of one
+    half-move (2 launches) beside the plain version's and the bytes
+    bound; no PyTorch call computes the move."""
+    import torch
+
+    from pint_tpu_torch import sampler as ts
+
+    def half_move(propose, accept, args, a=2.0):
+        act, oth, u, idx, lnp, lnp_prop, u_acc = args
+        x, lp = act.clone(), lnp.clone()
+        flags = torch.empty(act.shape[0], dtype=torch.uint8, device="cuda")
+        count = torch.empty(1, dtype=torch.int64, device="cuda")
+        prop, z = propose(x, oth, u, idx, a)
+        accept(x, lp, prop, z, lnp_prop, u_acc, flags, count)
+        return prop, z, x, lp, flags, count
+
+    def same(p, q):
+        return all(torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+            torch.nan_to_num(a.double()).view(torch.int64),
+            torch.nan_to_num(b.double()).view(torch.int64))
+            for a, b in zip(p, q))
+
+    cuda = (ts.stretch_propose_cuda, ts.stretch_accept_cuda)
+    plain = (ts.stretch_propose_plain, ts.stretch_accept_plain)
+    out = {}
+    for label, args in (("path", _k9_case(mc)),
+                        ("h4096_d64", _k9_synthetic(4096, 64))):
+        a, b = half_move(*cuda, args), half_move(*cuda, args)
+        p = half_move(*plain, args)
+        torch.cuda.synchronize()
+        ok_plain, ok_rerun = same(a, p), same(a, b)
+        h, nd = args[0].shape
+        max_abs = max(float(torch.max(torch.abs(torch.nan_to_num(x.double())
+                                                - torch.nan_to_num(
+                                                    y.double()))))
+                      for x, y in zip(a, p))
+        row = {"shape": [h, nd], "bit_identical_to_plain": ok_plain,
+               "run_to_run": ok_rerun, "max_abs_err": max_abs,
+               "accepted": int(a[5])}
+        if not (ok_plain and ok_rerun):
+            log(f"k9 {label}: " + json.dumps(row))
+            raise AssertionError(f"K9 disagrees with its plain version at "
+                                 f"{label}")
+        row["ms"], row["timed_by"] = kernel_ms(
+            partial(half_move, *cuda, args))
+        row["plain_ms"], _ = kernel_ms(partial(half_move, *plain, args))
+        # a half-move's bytes: active, the gathered partners, the
+        # proposals out and back, the walkers written; u, idx, z, lnp
+        # (read, written), lnp_prop, u_acc; the flags
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            8 * (4 * h * nd + 8 * h) + h, 8 * h * nd + 60 * h)
+        row["library_ms"] = None
+        row["per_call_with_enqueue_ms"] = cuda_ms(
+            partial(half_move, *cuda, args), reps=50)
+        out[label] = row
+        log(f"k9 {label}: " + json.dumps(row))
+    out.update(build_report(ts.K9, ("stretch_propose_kernel",
+                                    "stretch_decide_kernel",
+                                    "stretch_select_kernel")))
+    log("k9 ptxas: " + json.dumps({k: v for k, v in out.items()
+                                   if k not in ("path", "h4096_d64")}))
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -2133,6 +2427,22 @@ def main():
         table.append(gw_row("woodbury_chi2_pre", "woodbury_pre.cu",
                             "pint_tpu/linalg.py:381",
                             g_gls["launches"]["K8"], k8))
+    else:
+        table = None
+    k9 = mc_gls = None
+    if ingest is not None:
+        from pint_tpu_torch.convert import B1855_MCMC_ANSWERS
+
+        mref = load_arrays(B1855_MCMC_ANSWERS)
+        mc_gls = run("mcmc gls", phase_mcmc, "gls", model_pt, toas_pt, mref)
+        run("mcmc wls", phase_mcmc, "wls", white, toas_pt, mref)
+        if mc_gls is not None:
+            k9 = run("k9", phase_k9, mc_gls)
+    run("mcmc autocorr", phase_mcmc_autocorr)
+    if table is not None and k9 is not None:
+        table.append(gw_row("stretch_move", "stretch_move.cu",
+                            "pint_tpu/sampler.py:207",
+                            mc_gls["launches"]["K9"], k9["path"]))
     else:
         table = None
     pta_arrays, pairs = load_pta_case()

@@ -50,6 +50,10 @@ B1855_WHITE_PAR = Path(__file__).resolve().parent / "data" \
     / "b1855_white.par"
 B1855_GRID_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "b1855_grid_answers.npz"
+#: the JAX CPU answers of the timing posterior's ensemble chains on the
+#: par/tim case (``tools/export_torch_mcmc_case.py``)
+B1855_MCMC_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "b1855_mcmc_answers.npz"
 #: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
 #: with the JAX CPU answers of its likelihood and posterior
 PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"

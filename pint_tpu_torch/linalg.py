@@ -139,16 +139,44 @@ def _(info, in_dims, x, perm, offsets):
     return out.reshape(out.shape[0], b, m), 1
 
 
+class _SegmentSum(torch.autograd.Function):
+    """The segment sums with their forward-mode tangent: they are linear
+    in x, so the tangent is the segment sums of x's tangent (K2 again on
+    CUDA).  Without it ``torch.func.jacfwd`` would drop the tangent at
+    the custom op and return zeros."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, perm, offsets):
+        return _segment_sum_op(x, perm, offsets)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(inputs[1], inputs[2])
+
+    @staticmethod
+    def jvp(ctx, dx, _dperm, _doffsets):
+        perm, offsets = ctx.saved_tensors
+        return _segment_sum_op(dx, perm, offsets)
+
+    @staticmethod
+    def backward(ctx, _grad):
+        raise NotImplementedError(
+            "segment_sum (kernel K2) has a forward-mode rule only")
+
+
 def segment_sum_fixed_order(x, perm, offsets):
     """Segment sums of ``x`` ((N,) or (N, M)) in a fixed order: K2 for
     CUDA tensors, the plain version for CPU tensors.  Under
-    ``torch.func.vmap`` a batched ``x`` is one call (one launch)."""
+    ``torch.func.vmap`` a batched ``x`` is one call (one launch);
+    ``torch.func.jacfwd`` differentiates it."""
     vec = x.dim() == 1
     x2 = x[:, None] if vec else x
     if x2.device.type not in ("cuda", "cpu"):
         raise ValueError(f"segment_sum_fixed_order: no version for "
                          f"{x2.device}")
-    out = _segment_sum_op(x2, perm, offsets)
+    out = _SegmentSum.apply(x2, perm, offsets)
     return out[:, 0] if vec else out
 
 
@@ -465,6 +493,34 @@ def _(info, in_dims, r, nvec, pre, perm, offsets, post, lt):
     return out.reshape(lead), 0
 
 
+class _WoodburyChi2Pre(torch.autograd.Function):
+    """K8 without a derivative rule: a gradient through it, in either
+    mode, raises naming the kernel (the custom op alone would drop a
+    forward-mode tangent and return zeros)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(r, nvec, pre, perm, offsets, post, lt):
+        return _woodbury_chi2_pre_op(r, nvec, pre, perm, offsets, post, lt)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise NotImplementedError(
+            "woodbury_chi2_pre (kernel K8) has no derivative rule; "
+            "differentiate the per-walker form (ROADMAP queue 1 item 14)")
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "woodbury_chi2_pre (kernel K8) has no derivative rule; "
+            "differentiate the per-walker form (ROADMAP queue 1 item 14)")
+
+
 def woodbury_chi2_logdet_pre(r, pre: WoodburyPre):
     """(chi2, logdet C) of r (N,) or (G, N) against a
     :func:`woodbury_precompute` result: only the r-dependent work runs,
@@ -475,8 +531,8 @@ def woodbury_chi2_logdet_pre(r, pre: WoodburyPre):
                          f"{r.device}")
     dense_pre, perm, offsets, post = _basis_parts(pre.U, pre.nvec.shape[0],
                                                   pre.nvec.device)
-    chi2 = _woodbury_chi2_pre_op(r, pre.nvec, dense_pre, perm, offsets,
-                                 post, pre.chol_upper)
+    chi2 = _WoodburyChi2Pre.apply(r, pre.nvec, dense_pre, perm, offsets,
+                                  post, pre.chol_upper)
     return chi2, pre.logdet
 
 

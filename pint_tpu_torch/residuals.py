@@ -10,6 +10,8 @@ dense columns after it (``post``), and a unit column at weight
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -133,6 +135,30 @@ class Residuals:
         U, phi = self._noise_basis_phi_at(values)
         chi2, _ = woodbury_chi2_logdet(r, sigma, U, phi)
         return chi2
+
+    def lnlikelihood_at(self, values):
+        """Gaussian log-likelihood of the residuals under the full noise
+        covariance (pint_tpu residuals.py:391): -(chi2 + logdet C) / 2 -
+        n log(2 pi) / 2, the white branch with logdet C = 2 sum log
+        sigma, the correlated one through :func:`woodbury_chi2_logdet`.
+        The reference masks bucketing pad rows out of the logdet and
+        counts real TOAs in n; the port has no pad rows, so there is no
+        mask and n is the number of TOAs."""
+        r = self.time_resids_at(values)
+        sigma = self.sigma_at(values)
+        n = r.shape[-1]
+        if not self.model.has_correlated_errors:
+            chi2 = torch.sum((r / sigma) ** 2)
+            logdet = 2.0 * torch.sum(torch.log(sigma))
+        else:
+            U, phi = self._noise_basis_phi_at(values)
+            chi2, logdet = woodbury_chi2_logdet(r, sigma, U, phi)
+        return -0.5 * (chi2 + logdet) - 0.5 * n * math.log(2.0 * math.pi)
+
+    def lnlikelihood(self, values=None) -> float:
+        """:meth:`lnlikelihood_at` at ``values`` (a {name: float} dict;
+        the model's values when None), as a host float."""
+        return float(self.lnlikelihood_at(self.prepared.values_dict(values)))
 
     # -- host accessors --------------------------------------------------------
     @property

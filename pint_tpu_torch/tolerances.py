@@ -180,3 +180,67 @@ def vector_rel(got, ref) -> float:
     scale = float(np.max(np.abs(ref)))
     return float(np.max(np.abs(got - ref))) / scale if scale else \
         float(np.max(np.abs(got)))
+
+
+# --------------------------------------------------------------------------
+# the timing posterior and its ensemble sampler (the 10k par/tim chains of
+# pint_tpu_torch/data/b1855_mcmc_answers.npz, 32 walkers x 200 steps, and
+# the 400-TOA chains of the tests)
+# --------------------------------------------------------------------------
+
+#: lnposterior against JAX's, in absolute units: the limit on an lnp of
+#: size |lnp| is MCMC_LNP_ABS + MCMC_LNP_REL |lnp|.  The reference's own
+#: movement, stored in the answers file: its two forms of the GLS
+#: posterior (a capacity Cholesky per walker; one Woodbury factor) differ
+#: by up to 2.9e-6, and the same posterior in two compiled programs (the
+#: chain's scan, a jit of the vmap) by up to 7.1e-13 |lnp| (WLS, |lnp|
+#: ~ 5e9).  The port's lnp carries besides the difference of its
+#: residuals from JAX's, 7.8e-14 s on the 10k par/tim (the ingest's
+#: agreement, held to PREFIT_S): chi^2 moves by 2 sum r dr / sigma^2,
+#: which grows with the residuals, so the limit has a part proportional
+#: to |lnp| (chi^2 ~ 2 |lnp| away from the peak).  Over both 10k chains
+#: on the CPU (12 800 lnps) the port differs from JAX by at most 3.5e-5
+#: where |lnp| < 2e5 (the peak is at 1.2e5, where the logdet of C in s^2
+#: dominates), 9.2e-5 below 1e6 and 4.2e-11 |lnp| beyond.  On the card
+#: the fold's transcendentals round by CUDA's library (an ulp of the
+#: ~500 s Roemer delay is 1.1e-13 s, the size of dr above), which may
+#: double that: the limits are three times the CPU's maxima.
+MCMC_LNP_ABS = 3e-4
+MCMC_LNP_REL = 1e-10
+#: accept decisions and positions against JAX's, up to the first near
+#: tie: a decision whose margin |lnratio - log u| is below the sum of
+#: the lnp limits of the two lnps it compares (lnp_prop and the walker's
+#: lnp) may go either way between two implementations within the limit.
+#: Up to it every decision is the same and positions are bit-identical
+#: (0 ulp): the proposal's arithmetic repeats XLA's (fused
+#: multiply-adds, the division by a as a product with 1/a).  Over the
+#: two 10k chains on the CPU one decision is a near tie (GLS, step 146,
+#: margin 3.7e-4 at the peak against a limit of 6.2e-4; it went JAX's
+#: way there) and the smallest WLS margin is 3.5e-3.
+MCMC_POSITION_ULPS = 0
+
+
+def mcmc_lnp_limit(lnp_ref):
+    """The lnp limit of :data:`MCMC_LNP_ABS` and :data:`MCMC_LNP_REL`
+    at reference values ``lnp_ref`` (NaN where the reference is NaN)."""
+    return MCMC_LNP_ABS + MCMC_LNP_REL * np.abs(np.asarray(lnp_ref,
+                                                           np.float64))
+
+
+def mcmc_lnp_ok(got, ref) -> bool:
+    """Every lnp within its limit; NaN only where the reference is NaN
+    and -inf only where it is -inf."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    same = np.isnan(got) == np.isnan(ref)
+    inf = np.isinf(got) | np.isinf(ref)
+    fin = ~np.isnan(ref) & ~inf
+    return bool(np.all(same) and np.all(got[inf] == ref[inf])
+                and np.all(np.abs(got[fin] - ref[fin])
+                           <= mcmc_lnp_limit(ref[fin])))
+
+
+def near_ties(margin, lnp_prop, lnp_before):
+    """Mask of the near-tie decisions: |margin| below the sum of the lnp
+    limits of the two lnps the decision compares."""
+    return np.abs(margin) < (mcmc_lnp_limit(lnp_prop)
+                             + mcmc_lnp_limit(lnp_before))

@@ -1,4 +1,4 @@
-"""Kernels K1-K8 on the card against their plain PyTorch versions.
+"""Kernels K1-K9 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -558,3 +558,85 @@ def test_grid_launches_independent_of_points(card, kind):
     assert counts[0] == counts[1] and all(c > 0 for c in counts[0])
     if kind == "gls":  # K8 serves the final chi^2 alone
         assert counts[0][2] == 1
+
+
+def _k9_inputs(card, h, nd, seed):
+    rng = np.random.default_rng(seed)
+    scale = 10.0 ** rng.uniform(-12, 3, nd)
+    center = rng.normal(0, 1, nd) * 10.0 ** rng.uniform(-3, 3, nd)
+
+    def t(a, dtype=torch.float64):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=card)
+    act = t(center + scale * rng.standard_normal((h, nd)))
+    oth = t(center + scale * rng.standard_normal((h, nd)))
+    lnp = rng.normal(1e5, 3.0, h)
+    lnp_prop = lnp + rng.normal(0.0, 3.0, h)
+    lnp_prop[:3] = (np.nan, -np.inf, np.inf)[:h]
+    lnp[3:4] = np.nan
+    return (act, oth, t(rng.uniform(size=h)),
+            t(rng.integers(0, h, h), torch.int64), t(lnp), t(lnp_prop),
+            t(rng.uniform(size=h)))
+
+
+def _bits_equal_nan(a, b):
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+
+
+@pytest.mark.parametrize("h,nd", [(16, 10), (4096, 64), (3, 1)])
+@pytest.mark.parametrize("a", [2.0, 1.7])
+def test_k9_bit_identical_to_plain(card, h, nd, a):
+    """K9's two stages against the plain ones on the same inputs:
+    proposals, z, walkers, lnp, flags and count bit-identical (a NaN
+    equal to a NaN), and bit-identical run to run."""
+    from pint_tpu_torch import sampler as ts
+
+    act, oth, u, idx, lnp, lnp_prop, u_acc = _k9_inputs(card, h, nd, h)
+    outs = []
+    for propose, accept in ((ts.stretch_propose_cuda, ts.stretch_accept_cuda),
+                            (ts.stretch_propose_cuda, ts.stretch_accept_cuda),
+                            (ts.stretch_propose_plain,
+                             ts.stretch_accept_plain)):
+        x, lp = act.clone(), lnp.clone()
+        acc = torch.empty(h, dtype=torch.uint8, device=card)
+        count = torch.empty(1, dtype=torch.int64, device=card)
+        prop, z = propose(x, oth, u, idx, a)
+        accept(x, lp, prop, z, lnp_prop, u_acc, acc, count)
+        outs.append((prop, z, x, lp, acc, count))
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for k, (p, q) in enumerate(zip(outs[0], other)):
+            assert _bits_equal_nan(p.double(), q.double()), k
+    acc = outs[0][4].tolist()
+    assert int(outs[0][5]) == sum(acc)
+    # a NaN or -inf proposal lnp rejects, +inf accepts, a NaN walker lnp
+    # rejects
+    assert acc[:4] == [0, 0, 1, 0][:h]
+
+
+def test_chain_on_card_counts_launches(card):
+    """The injected-draw Gaussian chain on the card: 4 K9 launches per
+    step, and the plain chain's positions on the CPU bit for bit."""
+    from pint_tpu_torch import sampler as ts
+
+    mu = np.array([1.0, -2.0, 0.5])
+    w = 1.0 / np.array([0.5, 2.0, 1.0])
+
+    def lnpost(x):
+        d = (x - torch.tensor(mu, device=x.device)) \
+            * torch.tensor(w, device=x.device)
+        return -0.5 * torch.sum(d * d)
+
+    rng = np.random.default_rng(4)
+    x0 = mu + 0.1 * rng.standard_normal((8, 3))
+    draws = (rng.uniform(size=(30, 2, 4)), rng.integers(0, 4, (30, 2, 4)),
+             rng.uniform(size=(30, 2, 4)))
+    ts.K9.launches = 0
+    got = ts.run_chain(lnpost, x0, 30, device=card, draws=draws)
+    assert ts.K9.launches == 4 * 30
+    ref = ts.run_chain(lnpost, x0, 30, device="cpu", draws=draws)
+    assert np.array_equal(got["accepted"], ref["accepted"])
+    assert np.array_equal(got["chain"], ref["chain"])
+    s = ts.EnsembleSampler(lnpost, nwalkers=8, device=card)
+    s.run_mcmc(s.initial_ball(mu, 0.1 * np.ones(3)), 20)
+    assert np.all(np.isfinite(s.chain)) and 0 < s.acceptance < 1

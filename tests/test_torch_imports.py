@@ -96,6 +96,32 @@ def test_k8_wrapper_never_falls_back():
     assert tl.K8.launches == 0
 
 
+def test_bayesian_and_sampler_modules_are_scanned():
+    assert {"pint_tpu_torch.bayesian", "pint_tpu_torch.sampler"} \
+        <= set(_modules())
+
+
+def test_k9_wrapper_never_falls_back():
+    """K9's wrappers raise on CPU tensors, and the dispatchers on a
+    device with no version; the plain stages run only for CPU
+    tensors."""
+    from pint_tpu_torch import sampler as ts
+
+    f64 = dict(dtype=torch.float64)
+    act, u = torch.zeros((2, 3), **f64), torch.full((2,), 0.5, **f64)
+    idx = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ts.stretch_propose_cuda(act, act, u, idx, 2.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ts.stretch_accept_cuda(act, u, act, u, u, u,
+                               torch.zeros(2, dtype=torch.uint8),
+                               torch.zeros(1, dtype=torch.int64))
+    meta = act.to("meta")
+    with pytest.raises(ValueError, match="no version"):
+        ts.stretch_propose(meta, meta, u.to("meta"), idx.to("meta"), 2.0)
+    assert ts.K9.launches == 0
+
+
 def test_ingest_modules_are_scanned():
     assert {"pint_tpu_torch.time", "pint_tpu_torch.time.mjd",
             "pint_tpu_torch.time.scales", "pint_tpu_torch.ephem",
