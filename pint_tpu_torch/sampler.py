@@ -528,7 +528,6 @@ class EnsembleSampler:
         self.chain = None
         self.lnprob = None
         self.acceptance = None
-        self.accepted = None
 
     def initial_ball(self, center, scale):
         """Walkers (nwalkers, ndim) in a Gaussian ball around
@@ -541,14 +540,13 @@ class EnsembleSampler:
             (self.nwalkers, center.shape[0]), generator=self.generator,
             dtype=torch.float64, device=self.device)
 
-    def _chunk(self, x0, nsteps, draws=None):
+    def _chunk(self, x0, nsteps):
         out = run_chain(self.lnpost, x0, nsteps, generator=self.generator,
-                        device=self.device, draws=draws)
-        return out, _finish(out, 1)
+                        device=self.device)
+        return _finish(out, 1)
 
-    def run_mcmc(self, x0, nsteps, thin=1, draws=None):
-        out, (chain, lnp, acc) = self._chunk(x0, nsteps, draws)
-        self.accepted = out["accepted"]
+    def run_mcmc(self, x0, nsteps, thin=1):
+        chain, lnp, acc = self._chunk(x0, nsteps)
         self.chain = chain[::thin] if thin > 1 else chain
         self.lnprob = lnp[::thin] if thin > 1 else lnp
         self.acceptance = acc
@@ -566,7 +564,7 @@ class EnsembleSampler:
             raise NotImplementedError(
                 "run_mcmc_autocorr(checkpoint=): the guard's checkpoint "
                 "files are not ported (ROADMAP queue 1 item 2)")
-        chains, lnprobs, accs, accepted = [], [], [], []
+        chains, lnprobs, accs = [], [], []
         tau_prev = None
         tau = np.array([np.inf])
         converged = False
@@ -575,10 +573,9 @@ class EnsembleSampler:
         acache = AutocorrCache(lag0=max(64, int(chunk)))
         while total < maxsteps:
             step = int(min(chunk, maxsteps - total))
-            out, (chain, lnprob, acc) = self._chunk(x, step)
+            chain, lnprob, acc = self._chunk(x, step)
             chains.append(chain)
             lnprobs.append(lnprob)
-            accepted.append(out["accepted"])
             accs.append((acc, step))
             x = chain[-1]
             total += step
@@ -594,7 +591,6 @@ class EnsembleSampler:
             tau_prev = tau
         self.chain = np.concatenate(chains, axis=0)
         self.lnprob = np.concatenate(lnprobs, axis=0)
-        self.accepted = np.concatenate(accepted, axis=0)
         # whole-run mean acceptance, weighted by chunk length
         self.acceptance = (sum(a * n for a, n in accs)
                            / sum(n for _, n in accs))

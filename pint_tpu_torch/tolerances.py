@@ -204,19 +204,26 @@ def vector_rel(got, ref) -> float:
 #: dominates), 9.2e-5 below 1e6 and 4.2e-11 |lnp| beyond.  On the card
 #: the fold's transcendentals round by CUDA's library (an ulp of the
 #: ~500 s Roemer delay is 1.1e-13 s, the size of dr above), which may
-#: double that: the limits are three times the CPU's maxima.
+#: double that.  One flat absolute part serves every |lnp| below 1e6:
+#: three times the 9.2e-5 maximum of that range, which is about nine
+#: times the maximum at the peak; the relative part is 2.4 times the
+#: maximum beyond.
 MCMC_LNP_ABS = 3e-4
 MCMC_LNP_REL = 1e-10
-#: accept decisions and positions against JAX's, up to the first near
-#: tie: a decision whose margin |lnratio - log u| is below the sum of
-#: the lnp limits of the two lnps it compares (lnp_prop and the walker's
-#: lnp) may go either way between two implementations within the limit.
+#: accept decisions and positions against JAX's: a decision whose
+#: margin |lnratio - log u| is below the sum of the lnp limits of the
+#: two lnps it compares (lnp_prop and the walker's lnp) is a near tie,
+#: which may go either way between two implementations within the
+#: limit.  A chain is held to JAX's up to the first near tie that went
+#: the other way (:func:`chain_parting_step`), which ends the comparison
+#: (the two chains part there); any other decision that differs fails.
 #: Up to it every decision is the same and positions are bit-identical
 #: (0 ulp): the proposal's arithmetic repeats XLA's (fused
 #: multiply-adds, the division by a as a product with 1/a).  Over the
 #: two 10k chains on the CPU one decision is a near tie (GLS, step 146,
 #: margin 3.7e-4 at the peak against a limit of 6.2e-4; it went JAX's
-#: way there) and the smallest WLS margin is 3.5e-3.
+#: way there, so both chains are held for all 200 steps) and the
+#: smallest WLS margin is 3.5e-3.
 MCMC_POSITION_ULPS = 0
 
 
@@ -244,3 +251,20 @@ def near_ties(margin, lnp_prop, lnp_before):
     limits of the two lnps the decision compares."""
     return np.abs(margin) < (mcmc_lnp_limit(lnp_prop)
                              + mcmc_lnp_limit(lnp_before))
+
+
+def chain_parting_step(margin, lnp_prop, lnp_before, accepted,
+                       accepted_ref) -> int:
+    """The first step at which a near tie (:func:`near_ties`) was decided
+    otherwise than in the reference, or the number of steps if none
+    was: the chains are comparable before it.  ``margin``, ``lnp_prop``
+    and ``lnp_before`` are (nsteps, 2, nwalkers / 2) as
+    ``sampler.decision_margins`` gives them; ``accepted`` and
+    ``accepted_ref`` are (nsteps, nwalkers), first half then second."""
+    margin = np.asarray(margin)
+    nsteps = margin.shape[0]
+    differ = (np.asarray(accepted, bool) != np.asarray(accepted_ref, bool)) \
+        .reshape(margin.shape)
+    parted = (differ & near_ties(margin, lnp_prop, lnp_before)) \
+        .any(axis=(1, 2))
+    return int(np.argmax(parted)) if parted.any() else nsteps

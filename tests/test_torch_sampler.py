@@ -16,6 +16,8 @@ pint_tpu's on the CPU.
   white and AR(1) chains;
 - ``EnsembleSampler.run_mcmc_autocorr`` converging on a 2-D Gaussian
   from the generator, recovering its variance;
+- ``tolerances.chain_parting_step`` parts two chains only at a near
+  tie decided otherwise;
 - odd walkers, ``mesh=`` and ``checkpoint=`` raise; a chain stuck at
   -inf raises ``FitDivergedError`` carrying the initial ensemble; the
   entry points default to CUDA and raise without it.
@@ -31,6 +33,7 @@ import torch
 
 from pint_tpu import sampler as jsampler
 from pint_tpu_torch import sampler as ts
+from pint_tpu_torch import tolerances as tol
 from tools.export_torch_mcmc_case import replay_draws
 
 
@@ -211,6 +214,26 @@ def test_run_mcmc_autocorr_converges_gaussian():
     assert 0.2 < s.acceptance < 0.9
     best, lnp = s.max_posterior()
     assert lnp == float(np.max(s.lnprob)) and best.shape == (2,)
+
+
+def test_chain_parting_step_only_at_a_near_tie_decided_otherwise():
+    nsteps, h = 4, 2
+    margin = np.ones((nsteps, 2, h))
+    margin[2, 1, 0] = 1e-5  # a near tie: the lnp limits at 1e5 sum to 6e-4
+    lnp = np.full((nsteps, 2, h), -1e5)
+    ref = np.zeros((nsteps, 2 * h), bool)
+
+    def parting(flips):
+        acc = ref.copy()
+        for step, walker in flips:
+            acc[step, walker] = True
+        return tol.chain_parting_step(margin, lnp, lnp, acc, ref)
+
+    assert tol.near_ties(margin, lnp, lnp).sum() == 1
+    assert parting([]) == nsteps
+    assert parting([(2, h)]) == 2  # the tie, second half's first walker
+    assert parting([(2, 0)]) == nsteps  # not a tie: the caller's check fails
+    assert parting([(1, 1), (2, h)]) == 2
 
 
 def test_odd_walkers_rejected():
