@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K9 and the wide forms K5w/K5bw, one nvcc per source, all started
+   (K1-K10 and the wide forms K5w/K5bw, one nvcc per source, all started
    together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
@@ -140,10 +140,34 @@ the closing ``{"ok": true, ...}`` line is not printed:
     bit-identical run to run; time of a half-move, plain time, bound;
     ``mcmc autocorr``: ``EnsembleSampler.run_mcmc_autocorr`` on a 2-D
     Gaussian from the generator: converged, variance within 15 %;
-23. the ``kernels`` JSON line: per kernel its launches on its main path
+23. ``stream gls`` / ``stream wls``: the streaming appends of the
+    par/tim case (the par; the white par) in the 10842 bucket:
+    ``fit_toas(maxiter=3)``, ``stream_prepare()`` and
+    ``append_refit(night, maxiter=3)`` for the 11 nights of
+    ``pint_tpu_torch/data/b1855_stream_nights.tim`` (10 clean, one with
+    two rows 50 us off), held to ``b1855_stream_answers.npz`` night by
+    night up to the first triage near tie decided otherwise: mode,
+    verdict, quarantined rows and captures (the recapture after the 8th
+    refit) equal to JAX's, chi^2 within
+    ``tolerances.stream_chi2_limit``, values and uncertainties within
+    ``tolerances.stream_fit_tolerances`` (the fit limits of JAX's refit
+    condition number, grown by its centering ratio); the final values
+    within 0.05 sigma of the port's own from-scratch fit, which is held
+    to JAX's; launches of K1, K2, K7, K10 at the capture and per night
+    (K10: one per incremental append and one per capture); the capture
+    wall, the median append latency over nights 1-9, the cold
+    from-scratch prepare + fit of the merged data, the busy share of one
+    append, peak memory;
+24. ``k10``: K10 against its plain version at the GLS and WLS captures'
+    own inputs and at the GLS fold's shape (32 x 473 onto the packed
+    moments): within ``tolerances.stream_moments_limit``,
+    bit-identical run to run; time beside the plain version, one
+    ``torch.addmm`` and the bound;
+25. the ``kernels`` JSON line: per kernel its launches on its main path
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
-    K6, the wide case for K5w and K5bw, the GLS chain for K9), error
+    K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
+    stream for K10; K10's times at the fold's shape), error
     against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
     computes the same function.
@@ -165,6 +189,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from functools import partial
 
 import numpy as np
@@ -289,12 +314,12 @@ def phase_build():
     from pint_tpu_torch.fixedpoint import K1
     from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
-    from pint_tpu_torch.linalg import K2, K3, K5, K7, K8
+    from pint_tpu_torch.linalg import K2, K3, K5, K7, K8, K10
     from pint_tpu_torch.sampler import K9
 
     t0 = time.time()
     libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7,
-                                           K8, K9)])
+                                           K8, K9, K10)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -2364,6 +2389,311 @@ def phase_k9(mc):
     return out
 
 
+def stream_nights(ref):
+    """The 11 nights of the stream check, read from the committed tim in
+    blocks of ``night_toas``."""
+    from pint_tpu_torch.convert import B1855_STREAM_NIGHTS
+    from pint_tpu_torch.toa import get_TOAs
+
+    back = get_TOAs(str(B1855_STREAM_NIGHTS))
+    n = int(ref["night_toas"])
+    return [back[np.arange(i * n, (i + 1) * n)]
+            for i in range(len(back) // n)]
+
+
+def host_profile(f, night, kind):
+    """Where an append's host time goes: ``cProfile`` of one more
+    append (``night`` moved 6 days later, past every row, so it lands
+    in the bucket; its rows are far off the model, so the triage holds
+    them all out) after the compared nights; the 12 largest cumulative
+    entries go to chiprun_out/stream_{kind}_host_profile.txt, the
+    stream's own stages are returned [name, cumulative ms]."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    extra = night[np.arange(len(night))]
+    extra.ticks = extra.ticks + np.int64(6 * 86400) * 2**32
+    extra.mjd_float = extra.mjd_float + 6.0
+    extra._compute_posvels()
+    prof = cProfile.Profile()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        prof.enable()
+        f.append_refit(extra, maxiter=3)
+        torch.cuda.synchronize()
+        prof.disable()
+    buf = io.StringIO()
+    st = pstats.Stats(prof, stream=buf).sort_stats("cumulative")
+    st.print_stats(40)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"stream_{kind}_host_profile.txt"),
+              "w") as fh:
+        fh.write(buf.getvalue())
+    want = ("append_refit", "_stream_mini_build", "_stream_delta",
+            "_stream_triage", "append", "append_toas", "prepare_appended",
+            "to_table", "_append_fit_data", "_stream_refit",
+            "stream_prepare", "merge", "_sliced")
+    rows = [(fn[2], round(v[3] * 1e3, 3)) for fn, v in st.stats.items()
+            if fn[2] in want and "pint_tpu_torch" in fn[0]]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def phase_stream(kind, model, toas, nights, ref, device="cuda"):
+    """The streaming appends on the card (``gls``: the par; ``wls``: the
+    white par), held to ``b1855_stream_answers.npz``: the bucketed fit
+    (``bucket=True``, the 10842 bucket, ``fit_toas(maxiter=3)``),
+    ``stream_prepare()`` and ``append_refit(night, maxiter=3)`` for the
+    11 nights.  Per night, up to the first triage near tie decided
+    otherwise than in JAX (``tolerances.STREAM_Z_TIE``; all nights when
+    none is): mode, ``in_bucket``, verdict, quarantined rows and the
+    captures it made equal to JAX's; chi^2 within
+    ``tolerances.stream_chi2_limit``; values and uncertainties within
+    ``tolerances.stream_fit_tolerances`` of JAX's refit condition number
+    and centering ratio.  The
+    final values within 0.05 sigma of the port's own from-scratch fit
+    over the merged data (JAX's oracle), and that fit within the fit
+    limits of JAX's.  Launches of K1, K2, K7, K10 at the capture and per
+    night (K10: one per incremental append, plus one per capture);
+    capture wall, median append latency over nights 1-9, the cold
+    from-scratch prepare + fit, busy share of one append, peak
+    memory."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7, K10
+
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cls = GLSFitter if kind == "gls" else WLSFitter
+    free = [str(k) for k in ref[f"{kind}_free_params"]]
+    kernels = {"K1": K1, "K2": K2, "K7": K7, "K10": K10}
+    m = copy.deepcopy(model)
+    f = cls(toas, m, device=device, bucket=True)
+    f.fit_toas(maxiter=3)
+    if list(m.free_params) != free or len(f.toas) != int(ref[f"{kind}_bucket"]):
+        raise AssertionError(f"stream {kind}: free set or bucket differ")
+    cond = f.fit_health["cond_log10"]
+    base_tol = tol.fit_tolerances(
+        tol.wls_normal_cond_log10(cond) if kind == "wls" else cond)
+    base_err = float(np.max(np.abs(np.array([m.values[k] for k in free])
+                                   - ref[f"{kind}_base_values"])
+                            / ref[f"{kind}_base_uncertainties"]))
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    sync()
+    t0 = time.time()
+    f.stream_prepare()
+    sync()
+    capture_s = time.time() - t0
+    capture_launches = {n: k.launches for n, k in kernels.items()}
+    nights_out = []
+    upto = len(nights)
+    bad = []
+    lat = []
+    busy = None
+    for i, night in enumerate(nights):
+        for k in kernels.values():
+            k.launches = 0
+        c0 = f.stream_counts["captures"]
+
+        def run(night=night):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = f.append_refit(night, maxiter=3)
+            sync()
+            return out
+        t0 = time.time()
+        if cuda and i == len(nights) - 1:
+            got = []
+            busy, _ = profile_breakdown(lambda: got.append(run()), 0.0,
+                                        f"stream_{kind}_append")
+            rep = got[0]
+        else:
+            rep = run()
+        wall = time.time() - t0
+        if 1 <= i <= 9:
+            lat.append(wall)
+        tri = rep["triage"]
+        q = np.zeros(len(night), dtype=bool)
+        q[tri["quarantine"]] = True
+        row = {"night": i, "mode": rep["mode"], "verdict": tri["verdict"],
+               "quarantined": np.flatnonzero(q).tolist(),
+               "captures": f.stream_counts["captures"] - c0,
+               "margin": tri["margin"], "wall_s": wall,
+               "launches": {n: k.launches for n, k in kernels.items()}}
+        same = (rep["mode"] == str(ref[f"{kind}_mode"][i])
+                and bool(rep["in_bucket"]) == bool(ref[f"{kind}_in_bucket"][i])
+                and tri["verdict"] == str(ref[f"{kind}_verdict"][i])
+                and np.array_equal(q, ref[f"{kind}_quarantine"][i])
+                and row["captures"] == int(ref[f"{kind}_captures"][i]))
+        if not same and min(tri["margin"], float(ref[f"{kind}_margin"][i])) \
+                < tol.STREAM_Z_TIE:
+            upto = i
+            nights_out.append(row)
+            break
+        lim = tol.stream_chi2_limit()
+        tols = tol.stream_fit_tolerances(ref[f"{kind}_cond_log10"][i],
+                                         ref[f"{kind}_centering"][i])
+        ju = ref[f"{kind}_uncertainties"][i]
+        row["chi2_rel"] = abs(rep["chi2"] / float(ref[f"{kind}_chi2"][i])
+                              - 1.0)
+        row["chi2_limit"] = lim
+        row["values_sigma"] = float(np.max(np.abs(
+            np.array([m.values[k] for k in free]) - ref[f"{kind}_values"][i])
+            / ju))
+        row["unc_rel"] = float(np.max(np.abs(
+            np.array([m.uncertainties[k] for k in free]) / ju - 1.0)))
+        row["limits"] = {"values_sigma": tols["values_sigma"],
+                         "unc_rel": tols["unc_rel"]}
+        nights_out.append(row)
+        k10 = row["launches"]["K10"]
+        want_k10 = (1 if rep["mode"] == "incremental" else 0) \
+            + row["captures"]
+        if not same or row["chi2_rel"] > lim \
+                or row["values_sigma"] > tols["values_sigma"] \
+                or row["unc_rel"] > tols["unc_rel"] or k10 != want_k10:
+            bad.append(i)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    final = np.array([m.values[k] for k in free])
+    merged = f.toas[np.arange(f.toas.n_filled)]
+    ms = copy.deepcopy(model)
+    sync()
+    t0 = time.time()
+    fs = cls(merged, ms, device=device, bucket=True)
+    fs.fit_toas(maxiter=3)
+    sync()
+    cold_s = time.time() - t0
+    scratch = np.array([ms.values[k] for k in free])
+    serr = np.array([ms.uncertainties[k] for k in free])
+    vs_scratch = np.abs(final - scratch) / (0.05 * serr + 1e-9 * np.maximum(
+        np.abs(scratch), 1.0))
+    scond = fs.fit_health["cond_log10"]
+    stol = tol.fit_tolerances(tol.wls_normal_cond_log10(scond)
+                              if kind == "wls" else scond)
+    scratch_err = float(np.max(np.abs(scratch - ref[f"{kind}_scratch_values"])
+                               / ref[f"{kind}_scratch_uncertainties"]))
+    host = host_profile(f, nights[-2], kind) if cuda else None
+    res = {"base_fit_vs_jax_sigma": base_err,
+           "base_limit": base_tol["values_sigma"],
+           "capture_s": capture_s, "capture_launches": capture_launches,
+           "append_latency_ms_median_1_9": float(np.median(lat)) * 1e3,
+           "cold_scratch_prepare_fit_s": cold_s,
+           "busy_share_one_append": busy, "peak_gib": peak / 2**30,
+           "host_profile_top": host,
+           "nights_compared": upto,
+           "final_vs_own_scratch_over_limit": float(np.max(vs_scratch)),
+           "scratch_vs_jax_sigma": scratch_err,
+           "scratch_limit": stol["values_sigma"],
+           "stream_counts": dict(f.stream_counts)}
+    log(f"stream {kind}: {len(toas)} base TOAs in the {len(f.toas)} bucket, "
+        f"{len(nights)} nights; " + json.dumps(res))
+    for row in nights_out:
+        log(f"stream {kind} night: " + json.dumps(row))
+    if upto < len(nights):
+        log(f"stream {kind}: a triage near tie at night {upto} went the "
+            "other way; the streams part there")
+    if bad or base_err > base_tol["values_sigma"] \
+            or res["final_vs_own_scratch_over_limit"] > 1.0 \
+            or scratch_err > stol["values_sigma"] \
+            or capture_launches["K10"] != 1:
+        raise AssertionError(f"stream {kind} disagrees with JAX (nights "
+                             f"{bad})")
+    res.update(fitter=f, nights=nights_out)
+    return res
+
+
+def phase_k10(st_gls, st_wls):
+    """K10 against its plain version at the path's shapes: the GLS and
+    WLS captures' own inputs (10842 x 72, c0 = 60; 10842 x 12) and the
+    GLS fold (32 rows x K + P + 2 onto the stream's packed moments):
+    bit-identical to the plain version (the same order; within
+    ``tolerances.stream_moments_limit`` is the stated limit) and run to
+    run; time beside the plain version, one ``torch.addmm`` (A w
+    precomputed) and the bound."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    def case(f):
+        with torch.no_grad():
+            A, w, kd = f._stream_capture_inputs()
+        return A.contiguous(), w, kd, torch.zeros(
+            (A.shape[1], A.shape[1] - kd), dtype=torch.float64,
+            device="cuda")
+
+    fg = st_gls["fitter"]
+    S = fg._stream["moments"].S
+    rng = np.random.default_rng(10)
+    c = S.shape[0]
+    fold_A = torch.tensor(rng.standard_normal((32, c))
+                          * 10.0 ** rng.uniform(-3, 3, c), device="cuda")
+    fold_A[:, -1] = 1.0
+    fold_w = torch.tensor(np.r_[rng.uniform(0.5, 2.0, 25) * 1e12,
+                                np.zeros(7)], device="cuda")
+    out = {}
+    for label, (A, w, c0, S0) in (
+            ("capture gls", case(fg)),
+            ("capture wls", case(st_wls["fitter"])),
+            ("fold gls", (fold_A, fold_w, 0, S.clone()))):
+        n, cc = A.shape
+        a = tl.stream_moments_cuda(S0.clone(), A, w, c0)
+        b = tl.stream_moments_cuda(S0.clone(), A, w, c0)
+        p = tl.stream_moments_plain(S0.clone(), A, w, c0)
+        torch.cuda.synchronize()
+        abs_sum = torch.abs(S0) + torch.abs(A * w[:, None]).T \
+            @ torch.abs(A[:, c0:])
+        lim = tol.stream_moments_limit(n, abs_sum.cpu().numpy())
+        err = torch.abs(a - p).cpu().numpy()
+        row = {"shape": [n, cc, c0],
+               "bit_identical_to_plain": bool(torch.equal(
+                   a.view(torch.int64), p.view(torch.int64))),
+               "run_to_run": bool(torch.equal(a.view(torch.int64),
+                                              b.view(torch.int64))),
+               "max_abs_err": float(err.max()),
+               "err_over_limit": float(np.max(err / np.maximum(lim,
+                                                               1e-300)))}
+        if not (row["run_to_run"] and row["err_over_limit"] <= 1.0):
+            log(f"k10 {label}: " + json.dumps(row))
+            raise AssertionError(f"K10 disagrees with its plain version at "
+                                 f"{label}")
+        St = S0.clone()
+        row["ms"], row["timed_by"] = kernel_ms(
+            partial(tl.stream_moments_cuda, St, A, w, c0))
+        # ~400 small kernels a call at the capture's shape: events only
+        # (the profiler's key_averages over 10^4 launches takes minutes)
+        row["plain_ms"] = queued_ms(
+            partial(tl.stream_moments_plain, St, A, w, c0), reps=5, warmup=1)
+        Aw_t = (A * w[:, None]).T
+        Aj = A[:, c0:]
+        row["library_ms"], _ = kernel_ms(
+            lambda: torch.addmm(St, Aw_t, Aj))
+        cw = cc - c0
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            8 * (n * cc + n + 2 * cc * cw), 2 * n * cc * cw)
+        out[label] = row
+        log(f"k10 {label}: " + json.dumps(row))
+    out.update(build_report(tl.K10, ("stream_moments_partial",
+                                     "stream_moments_reduce")))
+    log("k10 ptxas: " + json.dumps({k: v for k, v in out.items()
+                                    if not k.startswith(("capture",
+                                                         "fold"))}))
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -2465,6 +2795,25 @@ def main():
         table.append(gw_row("stretch_move", "stretch_move.cu",
                             "pint_tpu/sampler.py:207",
                             mc_gls["launches"]["K9"], k9["path"]))
+    else:
+        table = None
+    k10 = st_gls = None
+    if ingest is not None:
+        from pint_tpu_torch.convert import B1855_STREAM_ANSWERS
+
+        sref = load_arrays(B1855_STREAM_ANSWERS)
+        nights = stream_nights(sref)
+        st_gls = run("stream gls", phase_stream, "gls", model_pt, toas_pt,
+                     nights, sref)
+        st_wls = run("stream wls", phase_stream, "wls", white, toas_pt,
+                     nights, sref)
+        if st_gls is not None and st_wls is not None:
+            k10 = run("k10", phase_k10, st_gls, st_wls)
+    if table is not None and k10 is not None:
+        n = st_gls["capture_launches"]["K10"] + sum(
+            r["launches"]["K10"] for r in st_gls["nights"])
+        table.append(gw_row("stream_moments", "stream_moments.cu",
+                            "pint_tpu/linalg.py:838", n, k10["fold gls"]))
     else:
         table = None
     pta_arrays, pairs = load_pta_case()

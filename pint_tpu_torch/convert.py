@@ -54,6 +54,13 @@ B1855_GRID_ANSWERS = Path(__file__).resolve().parent / "data" \
 #: par/tim case (``tools/export_torch_mcmc_case.py``)
 B1855_MCMC_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "b1855_mcmc_answers.npz"
+#: the 11 nights appended by the streaming check, and the JAX CPU
+#: answers of the streamed GLS and WLS fits on the par/tim case
+#: (``tools/export_torch_stream_case.py``)
+B1855_STREAM_NIGHTS = Path(__file__).resolve().parent / "data" \
+    / "b1855_stream_nights.tim"
+B1855_STREAM_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "b1855_stream_answers.npz"
 #: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
 #: with the JAX CPU answers of its likelihood and posterior
 PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"

@@ -235,6 +235,66 @@ def structured_from_blocks(pre, seg, k_e, post, device):
     )
 
 
+def su_dense_rows(su: StructuredU, rows):
+    """The dense (len(rows), K) rows of a structured basis: the
+    streaming append's delta rows of a basis it never needs in full
+    (pint_tpu linalg.py:126)."""
+    rows = torch.as_tensor(rows, dtype=torch.int64, device=su.seg.device)
+    ar = torch.arange(su.k_e, device=su.seg.device)
+    ecorr = (su.seg[rows].to(torch.int64)[:, None] == ar[None, :]).to(
+        torch.float64)
+    return torch.cat([su.pre[rows], ecorr, su.post[rows]], dim=1)
+
+
+def su_pad_rows(su: StructuredU, n_rows: int) -> StructuredU:
+    """``n_rows`` zero rows appended, outside every epoch (pint_tpu
+    linalg.py:137): the CSR is unchanged."""
+    z = dict(dtype=torch.float64, device=su.pre.device)
+    return StructuredU(
+        pre=torch.cat([su.pre, torch.zeros((n_rows, su.pre.shape[1]), **z)]),
+        seg=torch.cat([su.seg, torch.full((n_rows,), su.k_e,
+                                          dtype=su.seg.dtype,
+                                          device=su.seg.device)]),
+        perm=su.perm, offsets=su.offsets,
+        post=torch.cat([su.post, torch.zeros((n_rows, su.post.shape[1]),
+                                             **z)]))
+
+
+def basis_rows(U, rows):
+    """Dense rows of a dense or structured basis."""
+    if isinstance(U, StructuredU):
+        return su_dense_rows(U, rows)
+    return U[torch.as_tensor(rows, dtype=torch.int64, device=U.device)]
+
+
+def basis_set_rows(U, row0, u_rows):
+    """A copy of the basis ``U`` with rows ``[row0, row0 + len(u_rows))``
+    replaced by the dense ``u_rows``.  For a structured basis the epoch
+    block of ``u_rows`` must be an indicator (at most one 1 a row); the
+    epoch CSR is rebuilt on the host."""
+    dn = u_rows.shape[0]
+    if not isinstance(U, StructuredU):
+        out = U.clone()
+        out[row0:row0 + dn] = u_rows
+        return out
+    k_pre, k_e = U.pre.shape[1], U.k_e
+    e = u_rows[:, k_pre:k_pre + k_e]
+    if not bool(torch.all((e == 0) | (e == 1))) \
+            or bool(torch.any(e.sum(dim=1) > 1)):
+        raise ValueError("basis_set_rows: the epoch block of the new rows "
+                         "is not an indicator")
+    pre, post, seg = U.pre.clone(), U.post.clone(), U.seg.clone()
+    pre[row0:row0 + dn] = u_rows[:, :k_pre]
+    post[row0:row0 + dn] = u_rows[:, k_pre + k_e:]
+    seg[row0:row0 + dn] = torch.where(e.sum(dim=1) > 0, e.argmax(dim=1),
+                                      k_e).to(seg.dtype)
+    perm, offsets = epoch_csr(seg.cpu().numpy(), k_e)
+    return StructuredU(pre=pre, seg=seg,
+                       perm=torch.as_tensor(perm, device=seg.device),
+                       offsets=torch.as_tensor(offsets, device=seg.device),
+                       post=post)
+
+
 def su_to_dense(su: StructuredU):
     """The dense (N, K) basis — the verification form."""
     ar = torch.arange(su.k_e, device=su.seg.device)
@@ -327,15 +387,20 @@ def _capacity(sigma, U, phi):
     return nvec, cho_factor(sigma_cap), logdet_phi
 
 
-def woodbury_chi2_logdet(r, sigma, U, phi):
+def woodbury_chi2_logdet(r, sigma, U, phi, valid=None):
     """(chi2, logdet C) for C = diag(sigma^2) + U diag(phi) U^T, by the
-    Woodbury identity and the matrix determinant lemma."""
+    Woodbury identity and the matrix determinant lemma.  ``valid``
+    masks bucketing pad rows out of the white logdet term (pint_tpu
+    linalg.py:288)."""
     nvec, L, logdet_phi = _capacity(sigma, U, phi)
     ninv_r = r / nvec
     ut_ninv_r = _ut_dot(U, ninv_r)
     x = cho_solve(L, ut_ninv_r)
     chi2 = torch.sum(r * ninv_r) - torch.sum(ut_ninv_r * x)
-    logdet = (torch.sum(torch.log(nvec)) + logdet_phi
+    log_nvec = torch.log(nvec)
+    if valid is not None:
+        log_nvec = torch.where(valid, log_nvec, torch.zeros_like(log_nvec))
+    logdet = (torch.sum(log_nvec) + logdet_phi
               + 2.0 * torch.sum(torch.log(torch.diagonal(L))))
     return chi2, logdet
 
@@ -578,30 +643,34 @@ def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
                 torch.zeros((n_par, n_par), dtype=mtcm.dtype,
                             device=mtcm.device), phi_inv)
         rhs = mtn @ r
-    # column normalization for conditioning
+    if nb:
+        if gram is not None:
+            # the precomputed gram IS the Woodbury capacity matrix
+            ninv_r = r / nvec
+            chi2 = _gram_chi2(gram, torch.sum(r * ninv_r),
+                              _ut_dot(U, ninv_r))
+        else:
+            chi2, _ = woodbury_chi2_logdet(r, sigma, U, phi)
+    else:
+        chi2 = torch.sum((r / sigma) ** 2)
+    return _normal_tail(mtcm, rhs, n_par, chi2, with_health)
+
+
+def _normal_tail(mtcm, rhs, n_par, chi2, with_health):
+    """The solve every normal-equation path shares (pint_tpu
+    linalg.py:405 and :882): column normalization, eigh with the
+    1e-16 * lambda_max pseudo-inverse cutoff (pint_tpu keeps it over
+    Cholesky; the port keeps it so truncation matches the reference).
+    Returns (dpar, cov, noise_coeffs, chi2[, SolveDiag])."""
     norm = torch.sqrt(torch.diagonal(mtcm))
     norm = torch.where(norm == 0, torch.ones_like(norm), norm)
     mtcm_n = mtcm / torch.outer(norm, norm)
-    # eigh with a pseudo-inverse cutoff (pint_tpu keeps this over
-    # Cholesky; the port keeps it so truncation matches the reference)
     ev, Q = torch.linalg.eigh(mtcm_n)
     evmax = torch.max(ev)
     keep = ev > 1e-16 * evmax
     ev_inv = torch.where(keep, 1.0 / ev, torch.zeros_like(ev))
     xhat = (Q @ (ev_inv * (Q.T @ (rhs / norm)))) / norm
     cov_full = (Q * ev_inv[None, :]) @ Q.T / torch.outer(norm, norm)
-    if nb:
-        if gram is not None:
-            # the precomputed gram IS the Woodbury capacity matrix
-            L = cho_factor(gram)
-            ninv_r = r / nvec
-            ut_ninv_r = _ut_dot(U, ninv_r)
-            x = cho_solve(L, ut_ninv_r)
-            chi2 = torch.sum(r * ninv_r) - torch.sum(ut_ninv_r * x)
-        else:
-            chi2, _ = woodbury_chi2_logdet(r, sigma, U, phi)
-    else:
-        chi2 = torch.sum((r / sigma) ** 2)
     out = (-xhat[:n_par], cov_full[:n_par, :n_par], xhat[n_par:], chi2)
     if with_health:
         kept_min = torch.min(torch.where(ev_inv > 0.0, ev, evmax))
@@ -610,6 +679,14 @@ def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
             cond_log10=torch.log10(evmax / torch.clamp(kept_min,
                                                        min=1e-300))),)
     return out
+
+
+def _gram_chi2(gram, rr, y):
+    """chi^2 = rr - y^T gram^-1 y through the capacity Cholesky: the
+    gram fast path of :func:`gls_normal_solve` and the blocks' chi^2 of
+    :func:`normal_solve_from_blocks`."""
+    x = cho_solve(cho_factor(gram), y)
+    return rr - torch.sum(y * x)
 
 
 # --------------------------------------------------------------------------
@@ -1204,3 +1281,214 @@ def wls_whiten(r, J, err):
     if r.device.type not in ("cuda", "cpu"):
         raise ValueError(f"wls_whiten: no version for {r.device}")
     return _wls_whiten_op(r, J, err)
+
+
+# --------------------------------------------------------------------------
+# streaming appends: the normal-equation summary and its rank-k updates
+# (pint_tpu linalg.py:772-1000), and kernel K10
+# --------------------------------------------------------------------------
+#
+# A bucket-interior append turns pad rows, weight ~1e-32, into real rows.
+# woodbury_pre_append and noise_gram_append downdate the outgoing pad
+# rows exactly, so they match a from-scratch precompute to roundoff.
+
+class NormalBlocks(NamedTuple):
+    """The GLS normal equations reduced to their N-free summary at one
+    linearization point: everything the constant-gram path of
+    :func:`gls_normal_solve` needs, with the O(N) row contractions done.
+    Appended rows update it by row sums (:func:`normal_blocks_delta`), a
+    step re-anchors it (:func:`normal_blocks_shift`), and
+    :func:`normal_solve_from_blocks` solves it in O((P+K)^3)."""
+
+    a_jj: torch.Tensor  # (P, P) J^T W J
+    a_ju: torch.Tensor  # (P, K) J^T W U
+    gram: torch.Tensor  # (K, K) U^T W U + Phi^-1
+    y_j: torch.Tensor   # (P,)   J^T W r
+    y_u: torch.Tensor   # (K,)   U^T W r
+    rr: torch.Tensor    # ()     r^T W r
+
+
+def normal_blocks(r, J, sigma, U, phi, valid=None):
+    """:class:`NormalBlocks` from full-size arrays (pint_tpu
+    linalg.py:795).  ``valid`` gives pad rows exactly zero weight; ``U``
+    is dense or structured, ``phi`` a (K,) weight vector."""
+    w = 1.0 / sigma**2
+    if valid is not None:
+        w = torch.where(valid, w, torch.zeros_like(w))
+    nb = basis_ncols(U)
+    Jw = J * w[:, None]
+    a_jj = J.T @ Jw
+    f64 = dict(dtype=torch.float64, device=J.device)
+    if nb:
+        a_ju = _ut_dot(U, Jw).T
+        phi_inv, _ = _phi_terms(phi)
+        gram = _weighted_gram(U, w) + phi_inv
+        y_u = _ut_dot(U, w * r)
+    else:
+        a_ju = torch.zeros((J.shape[1], 0), **f64)
+        gram = torch.zeros((0, 0), **f64)
+        y_u = torch.zeros((0,), **f64)
+    return NormalBlocks(a_jj=a_jj, a_ju=a_ju, gram=gram, y_j=Jw.T @ r,
+                        y_u=y_u, rr=torch.sum(r * w * r))
+
+
+def normal_blocks_delta(nb_pre: NormalBlocks, r_d, J_d, sigma_d, U_d,
+                        valid_d=None):
+    """Appended rows folded into a :class:`NormalBlocks` (pint_tpu
+    linalg.py:838): every block is a row sum, so the rows add; rows off
+    ``valid_d`` carry exactly zero weight.  ``U_d`` is the dense
+    (DeltaN, K) basis rows of the new TOAs on the frozen basis."""
+    w = 1.0 / sigma_d**2
+    if valid_d is not None:
+        w = torch.where(valid_d, w, torch.zeros_like(w))
+    Jw = J_d * w[:, None]
+    if nb_pre.gram.shape[0]:
+        return NormalBlocks(
+            a_jj=nb_pre.a_jj + J_d.T @ Jw,
+            a_ju=nb_pre.a_ju + Jw.T @ U_d,
+            gram=nb_pre.gram + U_d.T @ (U_d * w[:, None]),
+            y_j=nb_pre.y_j + Jw.T @ r_d,
+            y_u=nb_pre.y_u + U_d.T @ (w * r_d),
+            rr=nb_pre.rr + torch.sum(r_d * w * r_d))
+    return nb_pre._replace(a_jj=nb_pre.a_jj + J_d.T @ Jw,
+                           y_j=nb_pre.y_j + Jw.T @ r_d,
+                           rr=nb_pre.rr + torch.sum(r_d * w * r_d))
+
+
+def normal_blocks_shift(nb_pre: NormalBlocks, dpar):
+    """The blocks re-anchored after the parameters moved by ``dpar``
+    (pint_tpu linalg.py:866): to first order r -> r + J dpar, so
+
+        y_j += A_jj dpar,  y_u += A_ju^T dpar,
+        rr  += 2 dpar^T y_j + dpar^T A_jj dpar."""
+    rr = (nb_pre.rr + 2.0 * torch.dot(dpar, nb_pre.y_j)
+          + dpar @ nb_pre.a_jj @ dpar)
+    return nb_pre._replace(y_j=nb_pre.y_j + nb_pre.a_jj @ dpar,
+                           y_u=nb_pre.y_u + nb_pre.a_ju.T @ dpar, rr=rr)
+
+
+def normal_solve_from_blocks(nb_pre: NormalBlocks, with_health=False):
+    """:func:`gls_normal_solve` from a :class:`NormalBlocks` (pint_tpu
+    linalg.py:882, guard off): the same normalization, eigh cutoff and
+    capacity-Cholesky chi^2 (``rr - y_u^T gram^-1 y_u``; ``rr`` without
+    a basis).  Returns (dpar, cov, noise_coeffs, chi2[, SolveDiag]),
+    dpar the step to ADD."""
+    n_par = nb_pre.a_jj.shape[0]
+    if nb_pre.gram.shape[0]:
+        mtcm = torch.cat([torch.cat([nb_pre.a_jj, nb_pre.a_ju], dim=1),
+                          torch.cat([nb_pre.a_ju.T, nb_pre.gram], dim=1)],
+                         dim=0)
+        rhs = torch.cat([nb_pre.y_j, nb_pre.y_u])
+        chi2 = _gram_chi2(nb_pre.gram, nb_pre.rr, nb_pre.y_u)
+    else:
+        mtcm, rhs, chi2 = nb_pre.a_jj, nb_pre.y_j, nb_pre.rr
+    return _normal_tail(mtcm, rhs, n_par, chi2, with_health)
+
+
+def woodbury_pre_append(pre: WoodburyPre, row0, sigma_rows, u_rows):
+    """A :class:`WoodburyPre` with rows ``[row0, row0 + DeltaN)`` (pad
+    rows of a bucket) replaced by appended rows, without refactoring the
+    N-row system (pint_tpu linalg.py:944): the capacity matrix moves by
+    the rank-k difference of the outgoing and incoming rows,
+
+        Sigma' = L L^T - U_old^T W_old U_old + U_new^T W_new U_new,
+
+    re-Choleskied in O(K^3); logdet C moves by the white-row swap and
+    the capacity determinant ratio."""
+    dn = sigma_rows.shape[0]
+    rows = torch.arange(row0, row0 + dn, device=pre.nvec.device)
+    nvec_new = sigma_rows**2
+    nvec_old = pre.nvec[row0:row0 + dn]
+    u_old = basis_rows(pre.U, rows)
+    cap = (pre.chol_lower @ pre.chol_lower.T
+           - u_old.T @ (u_old / nvec_old[:, None])
+           + u_rows.T @ (u_rows / nvec_new[:, None]))
+    L = cho_factor(cap)
+    logdet = (pre.logdet
+              + torch.sum(torch.log(nvec_new)) - torch.sum(torch.log(nvec_old))
+              + 2.0 * torch.sum(torch.log(torch.diagonal(L)))
+              - 2.0 * torch.sum(torch.log(torch.diagonal(pre.chol_lower))))
+    nvec = pre.nvec.clone()
+    nvec[row0:row0 + dn] = nvec_new
+    return WoodburyPre(nvec, basis_set_rows(pre.U, row0, u_rows), L, logdet,
+                       L.T.contiguous())
+
+
+def noise_gram_append(gram, sigma_rows, u_rows, sigma_old_rows,
+                      u_old_rows):
+    """A :func:`noise_gram_precompute` result with outgoing rows
+    (``sigma_old_rows``, ``u_old_rows``: the pad rows an append turns
+    real) swapped for the appended ones (pint_tpu linalg.py:977, whose
+    unused ``row0`` argument is dropped): O(DeltaN K^2), no
+    factorization."""
+    w_new = 1.0 / sigma_rows**2
+    w_old = 1.0 / sigma_old_rows**2
+    return (gram - u_old_rows.T @ (u_old_rows * w_old[:, None])
+            + u_rows.T @ (u_rows * w_new[:, None]))
+
+
+#: kernel K10 (replaces the moment sums of pint_tpu linalg.py:795-866
+#: and fitter.py:1196-1274: the stream capture and the append's fold)
+K10 = CudaKernel(
+    "stream_moments", "stream_moments.cu", "stream_moments_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4)
+#: rows of A per split of K10's sum (csrc/stream_moments.cu K10_ROWS)
+K10_ROWS = 32
+
+
+def stream_moments_plain(S, A, w, c0=0):
+    """``S += A^T diag(w) A[:, c0:]`` in place: S (c, c - c0) (a strided
+    view is fine), A (n, c), w (n,).  The plain version of kernel K10,
+    in its order: rows in splits of :data:`K10_ROWS`, each split's
+    products ``(A[r, i] w[r]) A[r, c0 + j]`` summed in ascending row
+    order, the splits' sums added in ascending order, the total added
+    to S."""
+    n, c = A.shape
+    cw = c - c0
+    ns = max(1, -(-n // K10_ROWS))
+    pad = ns * K10_ROWS - n
+    Aw = A * w[:, None]
+    Aj = A[:, c0:]
+    if pad:
+        Aw = torch.cat([Aw, Aw.new_zeros((pad, c))])
+        Aj = torch.cat([Aj, Aj.new_zeros((pad, cw))])
+    X = Aw.reshape(ns, K10_ROWS, c)
+    Y = Aj.reshape(ns, K10_ROWS, cw)
+    acc = A.new_zeros((ns, c, cw))
+    for r in range(K10_ROWS):
+        acc = acc + X[:, r, :, None] * Y[:, r, None, :]
+    tot = acc[0]
+    for s in range(1, ns):
+        tot = tot + acc[s]
+    S.add_(tot)
+    return S
+
+
+def stream_moments_cuda(S, A, w, c0=0):
+    """Kernel K10 on CUDA tensors, in place (see
+    :func:`stream_moments_plain`); raises on what it does not take."""
+    A, w = A.contiguous(), w.contiguous()
+    dev = _check_cuda("stream_moments_cuda", (S, A, w))
+    n, c = A.shape if A.dim() == 2 else (0, 0)
+    cw = c - c0
+    if A.dim() != 2 or w.shape != (n,) or n == 0 or not 0 <= c0 < c \
+            or S.shape != (c, cw) or S.stride(1) != 1 \
+            or S.stride(0) < cw:
+        raise ValueError("stream_moments_cuda: A (n, c), w (n,), S "
+                         "(c, c - c0) with unit column stride, 0 <= c0 < c")
+    ns = -(-n // K10_ROWS)
+    partial = torch.empty((ns, c, cw) if ns > 1 else (0,),
+                          dtype=torch.float64, device=dev)
+    K10.launch(dev, A.data_ptr(), w.data_ptr(), S.data_ptr(),
+               partial.data_ptr(), n, c, c0, S.stride(0))
+    return S
+
+
+def stream_moments(S, A, w, c0=0):
+    """``S += A^T diag(w) A[:, c0:]`` in place: K10 for CUDA tensors,
+    the plain version for CPU tensors."""
+    if S.device.type == "cuda":
+        return stream_moments_cuda(S, A, w, c0)
+    if S.device.type == "cpu":
+        return stream_moments_plain(S, A, w, c0)
+    raise ValueError(f"stream_moments: no version for {S.device}")

@@ -62,7 +62,11 @@ def rednoise_freqs(tspan_s: float, nmodes: int) -> np.ndarray:
 
 
 def fourier_basis_from_freqs(t_s, freqs) -> np.ndarray:
-    """Fourier design matrix (N, len(freqs)), interleaved sin/cos."""
+    """Fourier design matrix (N, len(freqs)), interleaved sin/cos, on a
+    given frequency comb (pint_tpu noise.py:109): the streaming append
+    extends a basis on its prepare-time comb with it, and
+    :func:`fourier_basis` builds every basis through it, so old rows
+    repeat bit for bit."""
     t_s = np.asarray(t_s, dtype=np.float64)
     freqs = np.asarray(freqs, dtype=np.float64)
     F = np.zeros((len(t_s), len(freqs)))
@@ -206,6 +210,35 @@ class EcorrNoise(NoiseComponent):
             "counts": tuple(counts),
         }
 
+    def prepare_streamed(self, toas, model, old_ctx, n0, n1, device):
+        """The ctx after rows ``[n0, n1)`` of ``toas`` were appended
+        (pint_tpu noise.py:363): the old epoch layout when the new rows
+        cannot disturb it, None (a full re-prepare) otherwise.  Epochs
+        key on their first time with a running 1 s window, so rows later
+        than every old row by more than the window can neither re-bucket
+        an old row nor revive a dropped singleton; they matter only if
+        they form an epoch of >= 2 among themselves.  Vetoes: new rows
+        out of time order, a new row within 1 s of the last old live row
+        of its select, a new epoch.  On the fast path every new row is a
+        singleton, outside every epoch, as a from-scratch prepare would
+        leave it."""
+        t = np.asarray(toas.ticks).astype(np.float64) / 2**32
+        live = ~(toas.flag_equals("pad", "1")
+                 | toas.flag_equals("quarantine", "1"))
+        for sel in self.selects:
+            mask = mask_from_select(sel, toas) & live
+            t_old = t[:n0][mask[:n0]]
+            t_new = t[n0:n1][mask[n0:n1]]
+            if t_new.size == 0:
+                continue
+            if np.any(np.diff(t_new) < 0.0):
+                return None
+            if t_old.size and float(t_new.min()) < float(t_old.max()) + 1.0:
+                return None
+            if _quantization_buckets(t_new):
+                return None
+        return dict(old_ctx)
+
     def n_basis(self, ctx) -> int:
         return int(sum(ctx["counts"]))
 
@@ -242,6 +275,22 @@ class PLRedNoise(NoiseComponent):
         F, freqs = toa_fourier_basis(toas, self._nmodes(model))
         return {"basis": as_tensor(F, device),
                 "freqs": as_tensor(freqs, device), "df": float(freqs[0])}
+
+    def prepare_streamed(self, toas, model, old_ctx, n0, n1, device):
+        """The ctx after rows ``[n0, n1)`` of ``toas`` were appended
+        (pint_tpu noise.py:441): the basis extended on the FROZEN
+        prepare-time frequency comb, not the new span, so the old rows
+        keep their bits and only the new rows are computed (host numpy
+        on the ticks, as the reference does) and written on the device.
+        Rows past ``n1`` keep the old pad values (weight ~1e-44).  None
+        when the mode count changed."""
+        freqs = old_ctx["freqs"].cpu().numpy()
+        if freqs.shape[0] != 2 * self._nmodes(model):
+            return None
+        t = np.asarray(toas.ticks[n0:n1]).astype(np.float64) / 2**32
+        F = old_ctx["basis"].clone()
+        F[n0:n1] = as_tensor(fourier_basis_from_freqs(t, freqs), device)
+        return {"basis": F, "freqs": old_ctx["freqs"], "df": old_ctx["df"]}
 
     def n_basis(self, ctx) -> int:
         return int(ctx["basis"].shape[1])

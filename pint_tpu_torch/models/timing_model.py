@@ -113,6 +113,55 @@ class TimingModel:
         return toas, tzr
 
 
+def _ctx_patch_rows(old_ctx, mini_ctx, n0, n1, n_rows):
+    """A component's ctx after an append, from the mini dataset's ctx
+    (pint_tpu timing_model.py:483): per-row tensors (leading axis
+    ``n_rows``, or axis 1 of a (k, n_rows) mask stack) take rows
+    ``[n0, n1)`` from the mini's leading rows, on the device; every
+    other entry (scalars, static depths) must equal the mini's.  None on
+    any disagreement, and the caller runs the component's prepare
+    instead.  Rows past ``n1`` keep the old pad values (weight
+    ~1e-44)."""
+    dn = n1 - n0
+    if dn <= 0 or set(old_ctx) != set(mini_ctx):
+        return None
+    out = {}
+    for k, v_old in old_ctx.items():
+        v_mini = mini_ctx[k]
+        if isinstance(v_old, torch.Tensor) and v_old.dim() >= 1 \
+                and v_old.shape[0] == n_rows:
+            if not isinstance(v_mini, torch.Tensor) \
+                    or v_mini.dim() != v_old.dim() \
+                    or v_mini.shape[0] < dn \
+                    or v_mini.shape[1:] != v_old.shape[1:]:
+                return None
+            a = v_old.clone()
+            a[n0:n1] = v_mini[:dn].to(v_old.dtype)
+            out[k] = a
+            continue
+        if isinstance(v_old, torch.Tensor) and v_old.dim() == 2 \
+                and v_old.shape[1] == n_rows:
+            if not isinstance(v_mini, torch.Tensor) or v_mini.dim() != 2 \
+                    or v_mini.shape[0] != v_old.shape[0] \
+                    or v_mini.shape[1] < dn:
+                return None
+            a = v_old.clone()
+            a[:, n0:n1] = v_mini[:, :dn].to(v_old.dtype)
+            out[k] = a
+            continue
+        if isinstance(v_old, torch.Tensor) or isinstance(v_mini,
+                                                         torch.Tensor):
+            if not (isinstance(v_old, torch.Tensor)
+                    and isinstance(v_mini, torch.Tensor)
+                    and v_old.shape == v_mini.shape
+                    and torch.equal(v_old, v_mini.to(v_old.device))):
+                return None
+        elif not v_old == v_mini:
+            return None
+        out[k] = v_old
+    return out
+
+
 class PreparedModel:
     """Model bound to a dataset: ctx built once, pure functions of
     values."""
@@ -133,6 +182,128 @@ class PreparedModel:
         self._noise_basis_comps = [
             c for c in model.noise_components
             if c.n_basis(self.ctx[type(c).__name__]) > 0]
+        self._su = None
+
+    # -- streaming appends ----------------------------------------------------
+    def prepare_appended(self, toas, n0, mini_ctx=None):
+        """This model bound to ``toas``, the dataset after an append
+        that turned pad rows ``[n0, n1)`` into real rows (pint_tpu
+        timing_model.py:615), with every prepare-time anchor kept.
+
+        A component with ``prepare_streamed`` extends its own ctx (the
+        red-noise comb, the ECORR epochs) or vetoes (None: the caller
+        re-prepares in full); a correlated component without the hook
+        vetoes.  The others take the mini dataset's rows
+        (:func:`_ctx_patch_rows`, ``mini_ctx`` the mini prepare's ctx)
+        or, failing that, run their prepare.  The TZR batch and ctx are
+        carried over: the absolute-phase anchor never moves.  The
+        structured noise basis takes the new rows on the device when the
+        components and widths are unchanged.  Returns the new
+        PreparedModel, or None on a veto."""
+        n1 = toas.n_filled or toas.n_real or len(toas)
+        table = toas.to_table()
+        n_rows = len(table)
+        model = self.model
+        ctx = {}
+        for c in model.components:
+            name = type(c).__name__
+            old_ctx = self.ctx[name]
+            hook = getattr(c, "prepare_streamed", None)
+            if hook is not None:
+                got = hook(table, model, old_ctx, n0, n1, self.device)
+                if got is None:
+                    return None
+            elif getattr(c, "introduces_correlated_errors", False):
+                return None
+            else:
+                got = None
+                if mini_ctx is not None and name in mini_ctx:
+                    got = _ctx_patch_rows(old_ctx, mini_ctx[name], n0, n1,
+                                          n_rows)
+                if got is None:
+                    got = c.prepare(table, model, self.device)
+            ctx[name] = got
+        new = object.__new__(PreparedModel)
+        new.model = model
+        new.toas = table
+        new.device = self.device
+        new.batch = table.to_batch(self.device)
+        new.ctx = ctx
+        new.tzr_batch = self.tzr_batch
+        new.tzr_ctx = self.tzr_ctx
+        new._noise_basis_comps = [
+            c for c in model.noise_components
+            if c.n_basis(ctx[type(c).__name__]) > 0]
+        new._su = None
+        widths = [c.n_basis(ctx[type(c).__name__])
+                  for c in new._noise_basis_comps]
+        if (self._su is not None and n1 > n0
+                and new._noise_basis_comps == self._noise_basis_comps
+                and widths == [c.n_basis(self.ctx[type(c).__name__])
+                               for c in self._noise_basis_comps]
+                and n_rows == self._su.seg.shape[0]):
+            new._su = self._su_rows_patched(new, n0, n1)
+        return new
+
+    def _su_rows_patched(self, new, n0, n1):
+        """The structured basis of ``new`` from this one's: the dense
+        blocks take rows ``[n0, n1)`` of ``new``'s component bases on the
+        device; the epochs are ``new``'s ECORR ctx (the streaming hook
+        certified them unchanged)."""
+        from pint_tpu_torch.linalg import StructuredU
+
+        pre, post = self._su.pre.clone(), self._su.post.clone()
+        side, col = "pre", 0
+        seg, perm, offsets = self._su.seg, self._su.perm, self._su.offsets
+        for c in new._noise_basis_comps:
+            cctx = new.ctx[type(c).__name__]
+            if c.category == "ecorr_noise":
+                seg, perm, offsets = cctx["seg"], cctx["perm"], \
+                    cctx["offsets"]
+                side, col = "post", 0
+                continue
+            k = c.n_basis(cctx)
+            dst = pre if side == "pre" else post
+            dst[n0:n1, col:col + k] = cctx["basis"][n0:n1]
+            col += k
+        return StructuredU(pre=pre, seg=seg, perm=perm, offsets=offsets,
+                           post=post)
+
+    def structured_basis(self):
+        """The extended noise basis as a StructuredU, built once: dense
+        blocks on either side of the (at most one) ECORR component's
+        epochs, the mean-offset column of ones appended."""
+        if self._su is not None:
+            return self._su
+        from pint_tpu_torch.linalg import structured_from_blocks
+
+        n = len(self.toas)
+        ecorrs = [c for c in self._noise_basis_comps
+                  if c.category == "ecorr_noise"]
+        if len(ecorrs) > 1:
+            raise NotImplementedError(
+                "more than one ECORR component: the dense-basis fallback "
+                "is not ported")
+        pre, post = [], []
+        seg, k_e = np.zeros(n, dtype=np.int64), 0
+        side = pre
+        for c in self._noise_basis_comps:
+            ctx = self.ctx[type(c).__name__]
+            if c.category == "ecorr_noise":
+                seg = ctx["seg"].cpu().numpy()
+                k_e = c.n_basis(ctx)
+                side = post
+            else:
+                side.append(ctx["basis"].cpu().numpy())
+        post.append(np.ones((n, 1)))
+
+        def cat(blocks):
+            return (np.concatenate(blocks, axis=1) if blocks
+                    else np.zeros((n, 0)))
+
+        self._su = structured_from_blocks(cat(pre), seg, k_e, cat(post),
+                                          self.device)
+        return self._su
 
     # -- values ---------------------------------------------------------------
     def values_dict(self, values=None):

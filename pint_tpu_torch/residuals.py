@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.linalg import (StructuredU, structured_from_blocks,
-                                   woodbury_chi2_logdet)
+from pint_tpu_torch.linalg import woodbury_chi2_logdet
 
 #: prior variance of the synthetic constant-offset column (pint_tpu
 #: keeps 1e30 where the reference used 1e40; kept: it changes the
@@ -37,46 +36,53 @@ class Residuals:
     mean in (the simulation's phase inversion)."""
 
     def __init__(self, toas, model, tzr=None, device=None,
-                 subtract_mean=True):
-        toas, tzr = model.tables(toas, tzr)
-        self.toas = toas
-        self.device = resolve_device(device)
-        self.prepared = model.prepare(toas, tzr=tzr, device=self.device)
+                 subtract_mean=True, prepared=None):
+        # bucketing (pint_tpu_torch.compile_cache.pad_toas): pad rows
+        # past n_real carry ~zero weight; the dof and the likelihood's
+        # count use the real rows, and its logdet masks the pad rows.
+        # Padded TOAs always carry the mask (all true at a bucket
+        # boundary); a quarantine hole makes it explicit (pad_valid)
+        self.n_real = getattr(toas, "n_real", None) or len(toas)
+        valid = None
+        if getattr(toas, "pad_valid", None) is not None:
+            valid = np.asarray(toas.pad_valid, dtype=bool)
+            self.n_real = int(np.count_nonzero(valid))
+        elif getattr(toas, "n_real", None) is not None:
+            valid = np.arange(len(toas)) < self.n_real
+        self.device = resolve_device(device if prepared is None
+                                     else prepared.device)
+        if prepared is None:
+            toas, tzr = model.tables(toas, tzr)
+            prepared = model.prepare(toas, tzr=tzr, device=self.device)
+        self.prepared = prepared
+        self.toas = prepared.toas
         self.model = model
         self.subtract_mean = subtract_mean
-        self._U_ext = self._build_structured_U()
+        self._valid = None if valid is None else torch.as_tensor(
+            valid, device=self.device)
+        self._U_ext = prepared.structured_basis()
 
-    def _build_structured_U(self) -> StructuredU:
-        """The extended noise basis as a StructuredU: dense blocks on
-        either side of the (at most one) ECORR component's epochs, the
-        mean-offset column appended."""
+    def structure_key(self):
+        """What the step computes besides data (the port's counterpart
+        of pint_tpu's trace key, residuals.py:224): the component set,
+        each ctx's static entries (the Kepler depth, ECORR counts, the
+        comb's df), the noise basis widths, the mean convention and the
+        presence of the pad mask.  Shapes alone never decide."""
         prep = self.prepared
-        n = len(self.toas)
-        ecorrs = [c for c in prep._noise_basis_comps
-                  if c.category == "ecorr_noise"]
-        if len(ecorrs) > 1:
-            raise NotImplementedError(
-                "more than one ECORR component: the dense-basis fallback "
-                "is not ported")
-        pre, post = [], []
-        seg, k_e = np.zeros(n, dtype=np.int64), 0
-        side = pre
-        for c in prep._noise_basis_comps:
-            ctx = prep.ctx[type(c).__name__]
-            if c.category == "ecorr_noise":
-                seg = ctx["seg"].cpu().numpy()
-                k_e = c.n_basis(ctx)
-                side = post
-            else:
-                side.append(ctx["basis"].cpu().numpy())
-        post.append(np.ones((n, 1)))
+        statics = tuple(
+            (name, k, repr(v)) for name, ctx in prep.ctx.items()
+            for k, v in sorted(ctx.items())
+            if not isinstance(v, torch.Tensor))
+        widths = tuple((type(c).__name__, c.n_basis(prep.ctx[type(c).__name__]))
+                       for c in prep._noise_basis_comps)
+        return (tuple(type(c).__name__ for c in self.model.components),
+                statics, widths, self.subtract_mean,
+                self._valid is not None)
 
-        def cat(blocks):
-            return (np.concatenate(blocks, axis=1) if blocks
-                    else np.zeros((n, 0)))
-
-        return structured_from_blocks(cat(pre), seg, k_e, cat(post),
-                                      self.device)
+    @property
+    def dof(self) -> int:
+        return self.n_real - len(self.model.free_params) - int(
+            self.subtract_mean)
 
     # -- pure functions of values ---------------------------------------------
     def sigma_at(self, values):
@@ -116,6 +122,8 @@ class Residuals:
                 frozen=data.get("tzr_frozen"))
             cols = cols - tcols[0:1, :]
         cols = cols / values["F0"]
+        if not self.subtract_mean:
+            return cols
         w = 1.0 / self.sigma_at(values) ** 2
         return cols - torch.sum(cols * w[:, None], dim=0) / torch.sum(w)
 
@@ -141,19 +149,22 @@ class Residuals:
         covariance (pint_tpu residuals.py:391): -(chi2 + logdet C) / 2 -
         n log(2 pi) / 2, the white branch with logdet C = 2 sum log
         sigma, the correlated one through :func:`woodbury_chi2_logdet`.
-        The reference masks bucketing pad rows out of the logdet and
-        counts real TOAs in n; the port has no pad rows, so there is no
-        mask and n is the number of TOAs."""
+        Bucketing pad rows are masked out of the white logdet (their log
+        sigma would bias a noise fit) and n counts the real TOAs."""
         r = self.time_resids_at(values)
         sigma = self.sigma_at(values)
-        n = r.shape[-1]
         if not self.model.has_correlated_errors:
             chi2 = torch.sum((r / sigma) ** 2)
-            logdet = 2.0 * torch.sum(torch.log(sigma))
+            logs = torch.log(sigma)
+            if self._valid is not None:
+                logs = torch.where(self._valid, logs, torch.zeros_like(logs))
+            logdet = 2.0 * torch.sum(logs)
         else:
             U, phi = self._noise_basis_phi_at(values)
-            chi2, logdet = woodbury_chi2_logdet(r, sigma, U, phi)
-        return -0.5 * (chi2 + logdet) - 0.5 * n * math.log(2.0 * math.pi)
+            chi2, logdet = woodbury_chi2_logdet(r, sigma, U, phi,
+                                                valid=self._valid)
+        return -0.5 * (chi2 + logdet) - 0.5 * self.n_real * math.log(
+            2.0 * math.pi)
 
     def lnlikelihood(self, values=None) -> float:
         """:meth:`lnlikelihood_at` at ``values`` (a {name: float} dict;

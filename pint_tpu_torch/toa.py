@@ -305,6 +305,12 @@ class TOAs:
     include_clock = True
     include_bipm = False
     bipm_version = "BIPM2019"
+    #: bucketing state (pint_tpu_torch.compile_cache): the real count of
+    #: a padded object, the rows occupied by real or quarantined TOAs,
+    #: and an explicit mask of the rows that count; None when unpadded
+    n_real = None
+    n_filled = None
+    pad_valid = None
 
     def __init__(self, toa_list, ephem="builtin", planets=False,
                  include_clock=True, include_bipm=False,
@@ -432,6 +438,51 @@ class TOAs:
             for b in ("venus", "mars", "jupiter", "saturn", "uranus", "neptune"):
                 pv = body_posvel_ssb(b, self.ticks, self.ephem)
                 self.planet_pos[b] = pv.pos - self.ssb_obs_pos
+
+    # -- selection / merging (pint_tpu toa.py:535 __getitem__, :578
+    # merge) -----------------------------------------------------------------
+    def __getitem__(self, index):
+        """Sub-TOAs by int, slice, boolean mask or integer array, with
+        the prepared arrays sliced (no ingest runs again).  The result
+        is unpadded: bucketing state is not carried."""
+        n = len(self)
+        if isinstance(index, (int, np.integer)):
+            if not -n <= index < n:
+                raise IndexError(index)
+            idx = np.array([index % n])
+        elif isinstance(index, slice):
+            idx = np.arange(n)[index]
+        else:
+            idx = np.asarray(index)
+            if idx.dtype == bool:
+                if idx.shape != (n,):
+                    raise IndexError(
+                        f"boolean mask of shape {idx.shape} against "
+                        f"{n} TOAs")
+                idx = np.flatnonzero(idx)
+            else:
+                idx = idx.astype(np.int64)
+        return self._sliced(idx)
+
+    def _sliced(self, idx):
+        new = object.__new__(TOAs)
+        new.ephem = self.ephem
+        new.planets = self.planets
+        new.include_clock = self.include_clock
+        new.include_bipm = self.include_bipm
+        new.bipm_version = self.bipm_version
+        new.flags = [dict(self.flags[i]) for i in idx]
+        new.names = [self.names[i] for i in idx]
+        for arr in ("error_us", "freq_mhz", "mjd_float", "clock_sec",
+                    "ticks", "ssb_obs_pos", "ssb_obs_vel", "obs_sun_pos"):
+            setattr(new, arr, getattr(self, arr)[idx])
+        new.obs_names = [self.obs_names[i] for i in idx]
+        obs_unique = sorted(set(new.obs_names))
+        new.obs_index = np.array(
+            [obs_unique.index(o) for o in new.obs_names], dtype=np.int64)
+        new.obs_list = obs_unique
+        new.planet_pos = {b: p[idx] for b, p in self.planet_pos.items()}
+        return new
 
     @classmethod
     def merge(cls, toas_list):

@@ -268,3 +268,73 @@ def chain_parting_step(margin, lnp_prop, lnp_before, accepted,
     parted = (differ & near_ties(margin, lnp_prop, lnp_before)) \
         .any(axis=(1, 2))
     return int(np.argmax(parted)) if parted.any() else nsteps
+
+
+# --------------------------------------------------------------------------
+# streaming appends (the 10k par/tim stream of
+# pint_tpu_torch/data/b1855_stream_answers.npz, and the tests' streams)
+# --------------------------------------------------------------------------
+
+#: a triage decision (|z| > 7 against the pre-append fit) is a near tie
+#: when its margin | |z| - 7 | is below this: z = (q - mu) / sigma moves
+#: with the residuals, which the port holds to PREFIT_S = 1e-11 s of
+#: JAX's, over the smallest uncertainty of the case (1 us).  Streams are
+#: compared up to the first near tie decided otherwise.
+STREAM_Z_TIE = 1e-5
+
+
+#: JAX's own movement of a streamed night's chi^2, relative, measured by
+#: ``tools/export_torch_stream_case.py`` on the 10k par/tim stream (11
+#: nights of 25 TOAs, GLS and WLS; stored per night in
+#: b1855_stream_answers.npz as ``*_chi2_moments_ulp_rel`` and
+#: ``*_chi2_start_ulp_rel``): the whole stream run again with every
+#: captured moment moved by one ulp moves the chi^2 of a night by up to
+#: 4.7e-9 (it grows from 2e-16 at night 0 as the steps carry it), and
+#: with every fitted value it starts from moved by one ulp by up to
+#: 7.3e-9 from night 1 on.  (At night 0 the start moves it by 2.1e-6 GLS
+#: and 1.5e-4 WLS: one ulp of F0 is half its sigma there, a move the
+#: port's start, held to the fit limits, does not make.)  The reported
+#: chi^2 is at the pre-step vector, so it is first order in the iterate,
+#: and the moments' cancellation (rr - y_u^T cap^-1 y_u) rides on it.
+STREAM_CHI2_MOMENTS_MOVE = 4.686478760618229e-09
+STREAM_CHI2_START_MOVE = 7.287487280294158e-09
+#: a triage decision (|z| > 7 against the pre-append fit) is a near tie
+#: when its margin | |z| - 7 | is below this: z = (q - mu) / sigma moves
+#: with the residuals, which the port holds to PREFIT_S = 1e-11 s of
+#: JAX's, over the smallest uncertainty of the case (1 us).  Streams are
+#: compared up to the first near tie decided otherwise.
+STREAM_Z_TIE = PREFIT_S / 1e-6
+#: the normal-block functions against JAX's on the same inputs, as
+#: :func:`vector_rel` (the same operations; matmul sums in other orders)
+STREAM_BLOCKS_REL = 1e-12
+
+
+def stream_chi2_limit() -> float:
+    """The limit on a streamed night's chi^2 against JAX's, relative.
+    The port's stream differs from JAX's in both places that move it:
+    its start (the base fit) and its moments (summed in another order),
+    each by about an ulp's worth where it matters, so the two measured
+    movements add; each package carries its own rounding, so the sum
+    doubles: 2 (4.7e-9 + 7.3e-9) = 2.4e-8 (the CPU shows up to 6.7e-9)."""
+    return 2.0 * (STREAM_CHI2_MOMENTS_MOVE + STREAM_CHI2_START_MOVE)
+
+
+def stream_fit_tolerances(cond_log10, centering) -> dict:
+    """:func:`fit_tolerances` of a streamed refit.  The refit centers
+    raw moments, a_jj = a_qq - s_j s_j^T / s_w: each centered entry
+    carries the rounding of the raw ones, eps |a_qq|, so relative to
+    the normalized matrix its error is eps times ``centering`` =
+    max_i a_qq[i, i] / a_jj[i, i] (2.87 on the 10k GLS stream) and the
+    conditioning bound grows by that factor.  On the card the GLS
+    stream's uncertainties differ from JAX's by up to 1.3 times
+    2 eps kappa at night 5 (0.46 of this limit)."""
+    return fit_tolerances(float(cond_log10)
+                          + float(np.log10(max(float(centering), 1.0))))
+
+
+def stream_moments_limit(n_rows, abs_sum):
+    """Kernel K10 (and its plain version) against any other float64
+    order of the same sum: per entry, n eps times the sum of the
+    absolute values of its terms (and of the S it adds to), the
+    worst-case bound of a recursive sum of n terms."""
+    return (n_rows + 1) * _EPS * np.asarray(abs_sum)

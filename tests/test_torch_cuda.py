@@ -1,4 +1,4 @@
-"""Kernels K1-K9 on the card against their plain PyTorch versions.
+"""Kernels K1-K10 on the card against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -640,3 +640,56 @@ def test_chain_on_card_counts_launches(card):
     s = ts.EnsembleSampler(lnpost, nwalkers=8, device=card)
     s.run_mcmc(s.initial_ball(mu, 0.1 * np.ones(3)), 20)
     assert np.all(np.isfinite(s.chain)) and 0 < s.acceptance < 1
+
+
+@pytest.mark.parametrize("n,c,c0", [(10842, 72, 60), (32, 473, 0),
+                                    (10842, 12, 0), (77, 9, 3)])
+def test_k10_bit_identical_to_plain_and_deterministic(card, n, c, c0):
+    """K10 at the capture's shapes (GLS, WLS) and the fold's, against
+    its plain version (the same order: bit-identical) and run to run."""
+    from pint_tpu_torch import linalg as tl
+
+    rng = np.random.default_rng(n + c)
+    A = torch.tensor(rng.standard_normal((n, c))
+                     * 10.0 ** rng.uniform(-4, 4, c))
+    w = torch.tensor(rng.uniform(0.5, 2.0, n) * 1e12)
+    S0 = torch.tensor(rng.standard_normal((c, c - c0)))
+    ref = tl.stream_moments_plain(S0.clone(), A, w, c0)
+    a = tl.stream_moments_cuda(S0.to(card), A.to(card), w.to(card), c0)
+    b = tl.stream_moments_cuda(S0.to(card), A.to(card), w.to(card), c0)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    assert torch.equal(a.cpu().view(torch.int64), ref.view(torch.int64))
+
+
+def test_stream_on_card_counts_launches(card):
+    """A WLS stream on the card: one K10 launch per incremental append
+    and one per capture, and the CPU stream's decisions and values."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import (B1855_STREAM_NIGHTS, B1855_TIM,
+                                        B1855_WHITE_PAR)
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.models.builder import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    base = get_TOAs(str(B1855_TIM))[np.arange(0, 10000, 25)]
+    back = get_TOAs(str(B1855_STREAM_NIGHTS))
+    nights = [back[np.arange(25 * i, 25 * i + 6)] for i in range(3)]
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = get_model(str(B1855_WHITE_PAR))
+        f = WLSFitter(base, m, bucket=True, device=dev)
+        f.fit_toas(maxiter=3)
+        tl.K10.launches = 0
+        f.stream_prepare()
+        reps = [f.append_refit(d, maxiter=3) for d in nights]
+        out[dev.type] = (tl.K10.launches, [r["mode"] for r in reps],
+                         np.array([m.values[k] for k in m.free_params]),
+                         np.array([m.uncertainties[k]
+                                   for k in m.free_params]),
+                         reps[-1]["cond_log10"])
+    assert out["cuda"][0] == 1 + 3 and out["cpu"][0] == 0
+    assert out["cuda"][1] == out["cpu"][1] == ["incremental"] * 3
+    lim = tol.fit_tolerances(out["cpu"][4])
+    assert np.max(np.abs(out["cuda"][2] - out["cpu"][2]) / out["cpu"][3]) \
+        <= lim["values_sigma"]
