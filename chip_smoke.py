@@ -98,11 +98,13 @@ the closing ``{"ok": true, ...}`` line is not printed:
     named), peak device memory;
 17. ``k8``: K8 (Woodbury chi^2 against a prebuilt factor) against its
     plain version at the GLS grid's own residuals (G = 256, N = 10^4,
-    K = 461): within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n,
-    bit-identical run to run; time beside the plain version, the
-    library composite (dense U^T (R/n)^T + solve_triangular) and the
-    bound; ``grid kernels``: K1, K2 and K7 at the grids' batched shapes
-    against their plain versions, timed;
+    K = 461) and at the GLS chain's G = 16 (the first 16 of them):
+    within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n, bit-identical
+    run to run; time beside the plain version, the library composite
+    (dense U^T (R/n)^T + solve_triangular) and the bound at each, the
+    launch plan, ptxas's registers and spills of its three kernels (a
+    spill fails the phase); ``grid kernels``: K1, K2 and K7 at the
+    grids' batched shapes against their plain versions, timed;
 18. ``downhill``: ``DownhillGLSFitter`` and ``DownhillWLSFitter`` from
     the exported start (SINI = 0.995), held to JAX's iteration count,
     ``converged``, each iteration's lambda, chi^2 per iteration
@@ -162,7 +164,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     own inputs and at the GLS fold's shape (32 x 473 onto the packed
     moments): within ``tolerances.stream_moments_limit``,
     bit-identical run to run; time beside the plain version, one
-    ``torch.addmm`` and the bound;
+    ``torch.addmm`` (A w precomputed), the same with A w formed inside
+    the timed call, and the bound;
 25. the ``kernels`` JSON line: per kernel its launches on its main path
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
@@ -287,6 +290,27 @@ def kernel_ms(fn, reps=50):
     the enqueue loop agree on), so it is not the measure."""
     prof_ms, _ = device_ms(fn)
     return queued_ms(fn, reps), f"events, queued (profiler: {prof_ms!r} ms)"
+
+
+def stage_us(fn, reps=20):
+    """{kernel name: mean device µs per call of ``fn``} from the
+    profiler (CUPTI): how a launcher call of several kernels splits
+    between them.  Printed beside the events' time of the call, which
+    stays the measure (see :func:`kernel_ms`)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split("(")[0]: e.self_device_time_total / reps
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def bound_ms(n_bytes, n_flops, flops_per_s=FP64_FLOPS):
@@ -1572,7 +1596,7 @@ GRID_NAMES = {"gls": ["M2", "SINI"], "wls": ["F0", "F1"]}
 GRID_GROUPS = {"eigh": ["syev", "sytrd", "stedc", "ormtr", "orgtr"],
                "svd": ["gesvd", "gesdd", "svd"], "K1": ["phase_f0_t"],
                "K2": ["segment_sum"], "K7": ["wls_whiten"],
-               "K8": ["woodbury_chi2"], "gemm": ["gemm", "gemv"]}
+               "K8": ["woodbury_"], "gemm": ["gemm", "gemv"]}
 
 
 def refit_limits(kind, model, toas):
@@ -1712,11 +1736,13 @@ def grid_residuals(g):
 
 
 def phase_k8(g):
-    """K8 against its plain version at the GLS grid's own (G, N, K): the
-    residuals at its 256 refit points against the par's Woodbury factor;
-    within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n, bit-identical
-    run to run; time beside the plain version, the library composite
-    (dense U^T (R/n)^T and solve_triangular) and the bound."""
+    """K8 against its plain version at the GLS grid's own (G, N, K) and
+    at the GLS chain's G = 16: the residuals at the grid's 256 refit
+    points (and the first 16 of them, the chain's walkers per half-move
+    at the same N and K) against the par's Woodbury factor; within
+    ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n, bit-identical run to
+    run; time beside the plain version, the library composite (dense
+    U^T (R/n)^T and solve_triangular) and the bound at each."""
     import torch
 
     from pint_tpu_torch import linalg as tl
@@ -1725,57 +1751,71 @@ def phase_k8(g):
     resids = g["fn"].resids
     base = resids.prepared.values_dict()
     with torch.no_grad():
-        R = grid_residuals(g).contiguous()
+        R_all = grid_residuals(g).contiguous()
         sigma = resids.sigma_at(base)
         U, phi = resids._noise_basis_phi_at(base)
         pre = tl.woodbury_precompute(sigma, U, phi)
-    gn, n = R.shape
-    parts = tl._basis_parts(U, n, R.device)
-    args = (R, pre.nvec) + tuple(parts) + (pre.chol_upper,)
-    a = tl.woodbury_chi2_pre_cuda(*args)
-    b = tl.woodbury_chi2_pre_cuda(*args)
-    p = tl.woodbury_chi2_pre_plain(*args)
-    torch.cuda.synchronize()
-    scale = torch.sum(R * R / pre.nvec, dim=1)
-    rel = float(torch.max(torch.abs(a - p) / scale))
-    rerun = _bits_equal((a,), (b,))
+    n = R_all.shape[1]
+    parts = tl._basis_parts(U, n, R_all.device)
+    Ud = tl.su_to_dense(U)
+    L = pre.chol_lower
     k_pre, k_e, k_post = (parts[0].shape[1], parts[2].numel() - 1,
                           parts[3].shape[1])
     k, kd, n_perm = k_pre + k_e + k_post, k_pre + k_post, parts[1].numel()
-    log(f"k8: G={gn}, N={n}, K={k} ({kd} dense, {k_e} epochs): vs plain "
-        f"{rel!r} of sum r^2/n (limit {tol.WOODBURY_PRE_REL:g}); run-to-run "
-        f"bit-identical {rerun}; chi2 {float(a.min())!r} .. "
-        f"{float(a.max())!r}")
-    if not (rerun and rel <= tol.WOODBURY_PRE_REL):
-        raise AssertionError("K8 disagrees with its plain version")
-    Ud = tl.su_to_dense(U)
-    L = pre.chol_lower
+    out = {}
+    for label, R in (("grid", R_all), ("chain", R_all[:16].contiguous())):
+        gn = R.shape[0]
+        args = (R, pre.nvec) + tuple(parts) + (pre.chol_upper,)
+        a = tl.woodbury_chi2_pre_cuda(*args)
+        b = tl.woodbury_chi2_pre_cuda(*args)
+        p = tl.woodbury_chi2_pre_plain(*args)
+        torch.cuda.synchronize()
+        scale = torch.sum(R * R / pre.nvec, dim=1)
+        rel = float(torch.max(torch.abs(a - p) / scale))
+        rerun = _bits_equal((a,), (b,))
+        log(f"k8 {label}: G={gn}, N={n}, K={k} ({kd} dense, {k_e} "
+            f"epochs): vs plain {rel!r} of sum r^2/n (limit "
+            f"{tol.WOODBURY_PRE_REL:g}); run-to-run bit-identical {rerun}; "
+            f"chi2 {float(a.min())!r} .. {float(a.max())!r}; plan "
+            f"{tl.k8_plan(gn, n, k_pre, k_e, k_post)}")
+        if not (rerun and rel <= tol.WOODBURY_PRE_REL):
+            raise AssertionError(f"K8 disagrees with its plain version at "
+                                 f"the {label}'s G = {gn}")
 
-    def library():
-        y = R / pre.nvec
-        z = torch.linalg.solve_triangular(L, Ud.T @ y.T, upper=False)
-        return torch.sum(R * y, dim=1) - torch.sum(z * z, dim=0)
+        def library(R=R):
+            y = R / pre.nvec
+            z = torch.linalg.solve_triangular(L, Ud.T @ y.T, upper=False)
+            return torch.sum(R * y, dim=1) - torch.sum(z * z, dim=0)
 
-    lib_rel = float(torch.max(torch.abs(library() - p) / scale))
-    ms, how = kernel_ms(partial(tl.woodbury_chi2_pre_cuda, *args))
-    plain_ms, _ = kernel_ms(partial(tl.woodbury_chi2_pre_plain, *args))
-    lib_ms, _ = kernel_ms(library)
-    nbytes = 8 * (gn * n + n + n * kd + k * k + gn) + 4 * (n_perm + k_e + 1)
-    # the dense product U_d^T (R/n)^T and the substitution are GEMM- and
-    # TRSM-shaped (the tensor-core peak); the rest is elementwise, and
-    # enters at its time on the tensor-core scale
-    tc_flops = gn * (2 * n * kd + k * k)
-    ew_flops = gn * (3 * n + n_perm + 2 * k)
-    bnd, by = bound_ms(nbytes, tc_flops + ew_flops * FP64_TC_FLOPS
-                       / FP64_FLOPS, FP64_TC_FLOPS)
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "library_rel": lib_rel, "bound_ms": bnd, "bound_by": by,
-           "max_abs_err": float(torch.max(torch.abs(a - p))),
-           "timed_by": how, "G": gn, "N": n, "K": k,
-           "per_call_with_enqueue_ms": cuda_ms(
-               partial(tl.woodbury_chi2_pre_cuda, *args), reps=20)}
-    out.update(build_report(tl.K8, ("woodbury_chi2_pre_kernel",)))
-    log("k8 times: " + json.dumps(out))
+        lib_rel = float(torch.max(torch.abs(library() - p) / scale))
+        ms, how = kernel_ms(partial(tl.woodbury_chi2_pre_cuda, *args))
+        plain_ms, _ = kernel_ms(partial(tl.woodbury_chi2_pre_plain, *args))
+        lib_ms, _ = kernel_ms(library)
+        # L: its lower triangle, all that the kernels read of it
+        nbytes = (8 * (gn * n + n + n * kd + k * (k + 1) // 2 + gn)
+                  + 4 * (n_perm + k_e + 1))
+        # the dense product U_d^T (R/n)^T and the substitution are GEMM-
+        # and TRSM-shaped (the tensor-core peak); the rest is
+        # elementwise, and enters at its time on the tensor-core scale
+        tc_flops = gn * (2 * n * kd + k * k)
+        ew_flops = gn * (3 * n + n_perm + 2 * k)
+        bnd, by = bound_ms(nbytes, tc_flops + ew_flops * FP64_TC_FLOPS
+                           / FP64_FLOPS, FP64_TC_FLOPS)
+        row = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library_rel": lib_rel, "bound_ms": bnd, "bound_by": by,
+               "max_abs_err": float(torch.max(torch.abs(a - p))),
+               "rel_of_sum_r2n": rel, "timed_by": how, "G": gn, "N": n,
+               "K": k, "per_call_with_enqueue_ms": cuda_ms(
+                   partial(tl.woodbury_chi2_pre_cuda, *args), reps=20),
+               "stages_us": stage_us(partial(tl.woodbury_chi2_pre_cuda,
+                                             *args))}
+        out[label] = row
+        log(f"k8 {label} times: " + json.dumps(row))
+    rep = build_report(tl.K8, ("woodbury_rhs_kernel",
+                               "woodbury_reduce_kernel",
+                               "woodbury_solve_kernel"))
+    log("k8 ptxas: " + json.dumps(rep))
+    out.update(rep)
     return out
 
 
@@ -2093,7 +2133,9 @@ def phase_k5_wide(wide):
 
 #: the ensemble chains of the par/tim case: par, fitter, chain length
 MCMC_GROUPS = {"K1": ["phase_f0_t"], "K2": ["segment_sum"],
-               "K8": ["woodbury_chi2"], "K9": ["stretch_"],
+               "K8": ["woodbury_"], "K8 rhs": ["woodbury_rhs"],
+               "K8 reduce": ["woodbury_reduce"],
+               "K8 solve": ["woodbury_solve"], "K9": ["stretch_"],
                "gemm": ["gemm", "gemv"]}
 
 
@@ -2622,7 +2664,8 @@ def phase_k10(st_gls, st_wls):
     bit-identical to the plain version (the same order; within
     ``tolerances.stream_moments_limit`` is the stated limit) and run to
     run; time beside the plain version, one ``torch.addmm`` (A w
-    precomputed) and the bound."""
+    precomputed; and with A w formed inside the timed call) and the
+    bound."""
     import torch
 
     from pint_tpu_torch import linalg as tl
@@ -2673,6 +2716,8 @@ def phase_k10(st_gls, st_wls):
         St = S0.clone()
         row["ms"], row["timed_by"] = kernel_ms(
             partial(tl.stream_moments_cuda, St, A, w, c0))
+        row["stages_us"] = stage_us(
+            partial(tl.stream_moments_cuda, St, A, w, c0))
         # ~400 small kernels a call at the capture's shape: events only
         # (the profiler's key_averages over 10^4 launches takes minutes)
         row["plain_ms"] = queued_ms(
@@ -2681,12 +2726,16 @@ def phase_k10(st_gls, st_wls):
         Aj = A[:, c0:]
         row["library_ms"], _ = kernel_ms(
             lambda: torch.addmm(St, Aw_t, Aj))
+        # the same yardstick from K10's own inputs: A w inside the call
+        row["library_aw_ms"], _ = kernel_ms(
+            lambda: torch.addmm(St, (A * w[:, None]).T, A[:, c0:]))
         cw = cc - c0
         row["bound_ms"], row["bound_by"] = bound_ms(
             8 * (n * cc + n + 2 * cc * cw), 2 * n * cc * cw)
         out[label] = row
         log(f"k10 {label}: " + json.dumps(row))
-    out.update(build_report(tl.K10, ("stream_moments_partial",
+    out.update(build_report(tl.K10, ("stream_moments_partial_rows",
+                                     "stream_moments_partial",
                                      "stream_moments_reduce")))
     log("k10 ptxas: " + json.dumps({k: v for k, v in out.items()
                                     if not k.startswith(("capture",
@@ -2778,7 +2827,7 @@ def main():
     if table is not None and k8 is not None:
         table.append(gw_row("woodbury_chi2_pre", "woodbury_pre.cu",
                             "pint_tpu/linalg.py:381",
-                            g_gls["launches"]["K8"], k8))
+                            g_gls["launches"]["K8"], k8["grid"]))
     else:
         table = None
     k9 = mc_gls = None

@@ -433,7 +433,7 @@ def noise_gram_precompute(sigma, U, phi):
 #: woodbury_chi2_logdet_pre), batched over residual vectors
 K8 = CudaKernel(
     "woodbury_chi2_pre", "woodbury_pre.cu", "woodbury_chi2_pre_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5)
+    [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6)
 
 
 class WoodburyPre(NamedTuple):
@@ -488,16 +488,27 @@ def woodbury_chi2_pre_plain(r, nvec, pre, perm, offsets, post, lt):
     return torch.sum(r * ninv_r, dim=-1) - torch.sum(ut * x, dim=0)
 
 
-def k8_shared_bytes(k, k_dense):
-    """Shared memory of one K8 block: the K right-hand sides, the 8
-    warps' partial sums of the dense columns and 256 partial sums."""
-    return 8 * (k + 8 * max(k_dense, 1) + 256)
+def k8_plan(g, n, k_pre, k_e, k_post):
+    """K8's launch plan for G residual vectors of N rows against a basis
+    of k_pre + k_e + k_post columns, as its library decides it
+    (csrc/woodbury_pre.cu ``woodbury_chi2_pre_plan``): the ``rows`` of a
+    row split, the number of ``splits``, the first stage's ``blocks``
+    and the ``scratch`` the launcher takes, in doubles."""
+    out = (ctypes.c_int64 * 4)()
+    # the out pointer goes as an int64, the width of a pointer
+    err = K8.call("woodbury_chi2_pre_plan", g, n, k_pre, k_e, k_post,
+                  ctypes.addressof(out))
+    if err:
+        raise ValueError(f"k8_plan: no plan for G = {g}, N = {n}, "
+                         f"K = {k_pre} + {k_e} + {k_post}")
+    return dict(zip(("rows", "splits", "blocks", "scratch"), out))
 
 
 def woodbury_chi2_pre_cuda(r, nvec, pre, perm, offsets, post, lt):
     """Kernel K8 on CUDA tensors: chi^2 of r (N,) or (G, N) in one
-    launch, one block per residual vector; raises on what it does not
-    take."""
+    launcher call (three kernels: the right-hand sides of all points,
+    their fixed-order reduce, the blocked substitution; see
+    :func:`k8_plan`); raises on what it does not take."""
     f64 = tuple(t.contiguous() for t in (r, nvec, pre, post, lt))
     i32 = tuple(t.contiguous() for t in (perm, offsets))
     dev = _check_cuda("woodbury_chi2_pre_cuda", f64)
@@ -517,14 +528,14 @@ def woodbury_chi2_pre_cuda(r, nvec, pre, perm, offsets, post, lt):
             or perm.numel() > n or n == 0 or g == 0:
         raise ValueError("woodbury_chi2_pre_cuda: r (N,) or (G, N), nvec "
                          "(N,), pre (N, K_pre), post (N, K_post), lt (K, K)")
-    if k8_shared_bytes(k, k_pre + k_post) > K5_SHARED_BYTES:
-        raise ValueError(f"woodbury_chi2_pre_cuda: K = {k} needs more "
-                         "shared memory than a block has")
+    plan = k8_plan(g, n, k_pre, k_e, k_post)
+    scratch = torch.empty(plan["scratch"], dtype=torch.float64, device=dev)
     chi2 = torch.empty((g,) if batched else (), dtype=torch.float64,
                        device=dev)
     K8.launch(dev, r.data_ptr(), nvec.data_ptr(), pre.data_ptr(),
               perm.data_ptr(), offsets.data_ptr(), post.data_ptr(),
-              lt.data_ptr(), chi2.data_ptr(), g, n, k_pre, k_e, k_post)
+              lt.data_ptr(), chi2.data_ptr(), scratch.data_ptr(),
+              plan["scratch"], g, n, k_pre, k_e, k_post)
     return chi2
 
 
@@ -1433,7 +1444,7 @@ K10 = CudaKernel(
     "stream_moments", "stream_moments.cu", "stream_moments_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 4)
 #: rows of A per split of K10's sum (csrc/stream_moments.cu K10_ROWS)
-K10_ROWS = 32
+K10_ROWS = 96
 
 
 def stream_moments_plain(S, A, w, c0=0):
@@ -1446,16 +1457,19 @@ def stream_moments_plain(S, A, w, c0=0):
     n, c = A.shape
     cw = c - c0
     ns = max(1, -(-n // K10_ROWS))
-    pad = ns * K10_ROWS - n
+    # one split sums its n rows alone: the kernel's zero rows past n add
+    # +0.0 to a sum that started at +0.0, which changes no bit
+    rows = K10_ROWS if ns > 1 else n
+    pad = ns * rows - n
     Aw = A * w[:, None]
     Aj = A[:, c0:]
     if pad:
         Aw = torch.cat([Aw, Aw.new_zeros((pad, c))])
         Aj = torch.cat([Aj, Aj.new_zeros((pad, cw))])
-    X = Aw.reshape(ns, K10_ROWS, c)
-    Y = Aj.reshape(ns, K10_ROWS, cw)
+    X = Aw.reshape(ns, rows, c)
+    Y = Aj.reshape(ns, rows, cw)
     acc = A.new_zeros((ns, c, cw))
-    for r in range(K10_ROWS):
+    for r in range(rows):
         acc = acc + X[:, r, :, None] * Y[:, r, None, :]
     tot = acc[0]
     for s in range(1, ns):

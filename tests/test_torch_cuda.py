@@ -446,14 +446,15 @@ def _k8_case(card, g, n, k_pre, k_e, seed, outside=True):
     return pre_w, R
 
 
-@pytest.mark.parametrize("g", [1, 16, 256])
+@pytest.mark.parametrize("g", [1, 16, 37, 256])
 @pytest.mark.parametrize("basis", ["epochs", "no_epochs", "all_in_epochs"])
 def test_k8_against_plain_and_deterministic(card, g, basis):
     """K8 against its plain version at the grid's shape (N = 10^4, 60
     dense columns + the offset, 400 epochs): within
     tolerances.WOODBURY_PRE_REL of sum r^2/n, bit-identical run to run,
-    one launch for all g vectors; an epoch-free basis and one where
-    every row lies in an epoch too."""
+    one launch for all g vectors (the chain's 16, the grid's 256, and
+    37, a multiple of neither point tile); an epoch-free basis and one
+    where every row lies in an epoch too."""
     from pint_tpu_torch import linalg as tl
     from pint_tpu_torch import tolerances as tol
 
@@ -472,6 +473,51 @@ def test_k8_against_plain_and_deterministic(card, g, basis):
     one = tl.woodbury_chi2_logdet_pre(R[0], pre)[0]
     assert one.shape == () and float(torch.abs(one - a[0]) / scale[0]) \
         <= tol.WOODBURY_PRE_REL
+
+
+@pytest.mark.parametrize("g,n,k_pre,k_e,k_post,rows,splits", [
+    (256, 10_000, 60, 400, 1, 352, 29),   # the GLS grid
+    (16, 10_000, 60, 400, 1, 64, 157),    # the GLS chain
+    (1, 10_000, 60, 400, 1, 64, 157),
+    (37, 300, 7, 20, 2, 32, 10),
+    (5, 4000, 3600, 40, 1, 2016, 2),      # 57 column groups
+    (3, 50, 0, 4, 0, 32, 2),              # no dense column
+])
+def test_k8_plan(card, g, n, k_pre, k_e, k_post, rows, splits):
+    """K8's launch plan, as its library decides it: whole 32-row chunks
+    per split, splits covering the rows with none empty, and at most
+    264 first-stage blocks (two on each of 132 SMs; 32-point tiles by
+    64 dense columns per split, plus one per diagonal block of L) while
+    a split keeps a chunk."""
+    from pint_tpu_torch import linalg as tl
+
+    plan = tl.k8_plan(g, n, k_pre, k_e, k_post)
+    assert (plan["rows"], plan["splits"]) == (rows, splits)
+    assert rows % 32 == 0 and (splits - 1) * rows < n <= splits * rows
+    tiles_a, nc = -(-g // 32), max(1, -(-(k_pre + k_post) // 64))
+    panels = -(-(k_pre + k_e + k_post) // 32)
+    assert plan["blocks"] == panels + splits * tiles_a * nc
+    if rows > 32:
+        assert plan["blocks"] <= 264
+    assert plan["scratch"] > 0
+
+
+def test_k8_past_one_blocks_shared_memory(card):
+    """K = 3641 with 3600 dense columns: 57 column groups in the first
+    stage, 114 panels in the substitution (z past its 64 shared-memory
+    panels lives in the scratch), more than one block's shared memory
+    holds."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    pre, R = _k8_case(card, 5, 4000, 3600, 40, seed=5)
+    parts = tl._basis_parts(pre.U, R.shape[1], card)
+    a = tl.woodbury_chi2_pre_cuda(R, pre.nvec, *parts, pre.chol_upper)
+    b = tl.woodbury_chi2_pre_cuda(R, pre.nvec, *parts, pre.chol_upper)
+    p = tl.woodbury_chi2_pre_plain(R, pre.nvec, *parts, pre.chol_upper)
+    assert torch.equal(a.view(torch.int64), b.view(torch.int64))
+    scale = torch.sum(R * R / pre.nvec, dim=1)
+    assert float(torch.max(torch.abs(a - p) / scale)) <= tol.WOODBURY_PRE_REL
 
 
 def test_k8_failed_factor_is_nan(card):
@@ -643,10 +689,19 @@ def test_chain_on_card_counts_launches(card):
 
 
 @pytest.mark.parametrize("n,c,c0", [(10842, 72, 60), (32, 473, 0),
-                                    (10842, 12, 0), (77, 9, 3)])
+                                    (10842, 12, 0), (77, 9, 3), (33, 12, 0),
+                                    (97, 12, 0), (225, 12, 0),
+                                    (113 * 96 + 1, 72, 60), (2048, 32, 0),
+                                    (2049, 9, 3), (100, 120, 40)])
 def test_k10_bit_identical_to_plain_and_deterministic(card, n, c, c0):
     """K10 at the capture's shapes (GLS, WLS) and the fold's, against
-    its plain version (the same order: bit-identical) and run to run."""
+    its plain version (the same order: bit-identical) and run to run;
+    and at the boundaries of its 96-row splits and 32-row chunks: one
+    split with pad rows (33), two (97), a last split of a chunk and a
+    row (225), one split more than the capture's 113, 256 groups of 4
+    outputs (the most the one-tile first pass takes; 32 whole reduce
+    tiles), a ragged reduce tile (54 outputs), and the tiled first pass
+    over two splits (c = 120 is past the one-tile pass)."""
     from pint_tpu_torch import linalg as tl
 
     rng = np.random.default_rng(n + c)

@@ -52,7 +52,7 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def _basis(seed):
+def _basis(seed, g=5):
     rng = np.random.default_rng(seed)
     seg = rng.integers(0, K_E + 1, N)  # id K_E: outside every epoch
     pre = rng.standard_normal((N, K_PRE))
@@ -61,13 +61,16 @@ def _basis(seed):
     sigma = rng.uniform(0.5, 2.0, N) * 1e-6
     phi = np.concatenate([rng.uniform(0.5, 2.0, K_PRE + K_E + K_POST - 1)
                           * 1e-12, [1e30]])
-    R = rng.standard_normal((5, N)) * 1e-6 + 2e-6
+    R = rng.standard_normal((g, N)) * 1e-6 + 2e-6
     return seg, pre, post, sigma, phi, R
 
 
+@pytest.mark.parametrize("g", [5, 16, 37])
 @pytest.mark.parametrize("basis", ["structured", "dense"])
-def test_woodbury_pre_matches_jax(basis):
-    seg, pre, post, sigma, phi, R = _basis(1)
+def test_woodbury_pre_matches_jax(basis, g):
+    """K8's plain version against the reference at 5 points, the GLS
+    chain's 16 and 37 (a multiple of neither of K8's point tiles)."""
+    seg, pre, post, sigma, phi, R = _basis(1, g)
     j_su = jl.structured_from_dense_blocks(pre, seg, K_E, post)
     t_su = tl.structured_from_blocks(pre, seg, K_E, post, "cpu")
     if basis == "dense":
@@ -81,7 +84,7 @@ def test_woodbury_pre_matches_jax(basis):
     one = np.array([float(tl.woodbury_chi2_logdet_pre(_t(r), tp)[0])
                     for r in R])
     stacked, logdet = tl.woodbury_chi2_logdet_pre(_t(R), tp)
-    assert stacked.shape == (5,) and logdet is tp.logdet
+    assert stacked.shape == (g,) and logdet is tp.logdet
     for got in (one, stacked.numpy()):
         assert np.max(np.abs(got - jc) / scale) <= tol.WOODBURY_PRE_REL
     # the plain version is the reference's formula: its own factor

@@ -289,7 +289,9 @@ def test_normal_block_functions_match_jax(fn):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n,c,c0", [(300, 12, 4), (32, 40, 0), (77, 9, 0),
-                                    (1, 5, 2)])
+                                    (1, 5, 2), (33, 12, 0), (97, 12, 0),
+                                    (2049, 9, 3), (113 * 96 + 1, 7, 2),
+                                    (100, 120, 40)])
 def test_stream_moments_plain_matches_numpy(n, c, c0):
     rng = np.random.default_rng(n + c)
     A = rng.standard_normal((n, c)) * 10.0 ** rng.uniform(-4, 4, c)
@@ -309,6 +311,27 @@ def test_stream_moments_plain_matches_numpy(n, c, c0):
     tla.stream_moments(alone, torch.tensor(A), torch.tensor(w), c0)
     assert torch.equal(full[:, c0:], alone)
     assert torch.all(full[:, :c0] == 0)
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 95])
+def test_stream_moments_plain_one_split_as_its_full_rows(n):
+    """One split (n < 96) sums its n rows alone: bit for bit the sum over
+    all 96 rows of the split with the rest zero, as the kernel's split
+    holds them, signs of zero included."""
+    rng = np.random.default_rng(n)
+    c, c0 = 9, 3
+    A = rng.standard_normal((n, c)) * 10.0 ** rng.uniform(-4, 4, c)
+    A[:, 1] = -0.0
+    w = rng.uniform(0.5, 2.0, n) * 1e12
+    S0 = rng.standard_normal((c, c - c0))
+    S0[0] = -0.0
+    pad = tla.K10_ROWS - n
+    short = tla.stream_moments(torch.tensor(S0), torch.tensor(A),
+                               torch.tensor(w), c0)
+    full = tla.stream_moments(
+        torch.tensor(S0), torch.tensor(np.r_[A, np.zeros((pad, c))]),
+        torch.tensor(np.r_[w, np.zeros(pad)]), c0)
+    assert torch.equal(short.view(torch.int64), full.view(torch.int64))
 
 
 def test_k10_wrapper_takes_cpu_tensors_to_plain():
