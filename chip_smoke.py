@@ -42,8 +42,10 @@ the closing ``{"ok": true, ...}`` line is not printed:
    ``torch.einsum`` and the bound, its kernels per call, ptxas's
    registers and spills (a spill fails the phase) and blocks per SM;
 9. kernel K4 (OS pair stage) against its plain version at the OS's
-   shapes, in the same way; the library yardstick is the two matmuls
-   Z diag(phihat) Z^T and V V^T;
+   shapes, in the same way, with ptxas's report (a spill fails the
+   phase); the library yardstick is the two matmuls Z diag(phihat) Z^T
+   and V V^T on prescaled inputs, printed beside the same two with the
+   phihat scaling inside the timed call;
 10. the Bayesian GWB posterior on the same array
     (``GWBPosterior(CommonProcess(pairs, nmodes=14))``, 138 dimensions:
     the GWB's (log10 A, gamma) and every pulsar's TNREDAMP, TNREDGAM):
@@ -66,7 +68,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     ``tolerances.KRON_PULSAR_REL`` per output, bit-identical from run
     to run, times beside the batched cholesky_ex + cholesky_solve +
     matmul and its autograd backward, K5's kernels per call, ptxas
-    report (a spill fails the phase), blocks per SM and waves; K6 (the
+    reports of K5 and K5b (a spill fails the phase), K5's blocks per SM
+    and waves, K5b's shared bytes; K6 (the
     transition's elementwise stages) against its plain version on the
     same states and draws:
     the same accept decisions, positions, momenta and step sizes within
@@ -86,7 +89,16 @@ the closing ``{"ok": true, ...}`` line is not printed:
     fit's own (r, J, sigma) and at N = 10^4, P = 11: rw bit-identical,
     the rest within ``tolerances.WLS_WHITEN_REL``, bit-identical run to
     run; time, bound, ptxas report;
-16. ``grid gls`` / ``grid wls``: the 16 x 16 chi^2 grids of the par/tim
+16. ``pulse numbers``: the two cases of
+    ``pint_tpu_torch/data/pn_answers.npz`` -- a 40-TOA gap case with 1 us
+    of white noise under TRACK -2, its pulse numbers from
+    ``compute_pulse_numbers`` on the
+    card (equal to JAX's), fitted by ``WLSFitter`` from F0 + 1e-7 Hz
+    (2.6 turns of drift across the 300-day gap), and corpus spin-000
+    with a ``PHASE 0.3`` command, fitted from its par -- prefit and
+    postfit residuals within 1e-11 s of JAX's, values, uncertainties and
+    chi^2 per iteration within the conditioning-aware fit limits;
+17. ``grid gls`` / ``grid wls``: the 16 x 16 chi^2 grids of the par/tim
     case through ``grid.make_grid_fn`` (GLS over (M2, SINI); WLS over
     (F0, F1) on ``b1855_white.par``), held to the JAX answers of
     ``b1855_grid_answers.npz`` (chi^2 within
@@ -96,7 +108,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
     call at G = 256 and G = 16 (equal); cold and warm wall, points/s,
     busy share and device time by group (the factorization's kernels
     named), peak device memory;
-17. ``k8``: K8 (Woodbury chi^2 against a prebuilt factor) against its
+18. ``k8``: K8 (Woodbury chi^2 against a prebuilt factor) against its
     plain version at the GLS grid's own residuals (G = 256, N = 10^4,
     K = 461) and at the GLS chain's G = 16 (the first 16 of them):
     within ``tolerances.WOODBURY_PRE_REL`` of sum r^2/n, bit-identical
@@ -105,7 +117,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
     launch plan, ptxas's registers and spills of its three kernels (a
     spill fails the phase); ``grid kernels``: K1, K2 and K7 at the
     grids' batched shapes against their plain versions, timed;
-18. ``downhill``: ``DownhillGLSFitter`` and ``DownhillWLSFitter`` from
+19. ``downhill``: ``DownhillGLSFitter`` and ``DownhillWLSFitter`` from
     the exported start (SINI = 0.995), held to JAX's iteration count,
     ``converged``, each iteration's lambda, chi^2 per iteration
     (``tolerances.REFIT_CHI2_REL``), values and uncertainties; and from
@@ -113,11 +125,11 @@ the closing ``{"ok": true, ...}`` line is not printed:
     the iteration count, ``converged`` and chi^2 per iteration, its
     lambdas and values printed beside JAX's from 0.99 and one ulp either
     side; the first step halved; launches of K1, K2, K7 during each fit;
-19. ``wide case``: ``pint_tpu_torch/data/pta4_wide.npz`` (4 pulsars,
+20. ``wide case``: ``pint_tpu_torch/data/pta4_wide.npz`` (4 pulsars,
     100 red-noise modes, nb = 203) -- ``lnlike``, a 2 x 2 grid and the
     posterior's value_and_grad at 4 theta on the card against the JAX
     answers it carries; launches of the wide forms K5w and K5bw (> 0);
-20. ``k5 wide``: K5w and K5bw against their plain versions at the wide
+21. ``k5 wide``: K5w and K5bw against their plain versions at the wide
     path's own inputs (the common process's noise weights, 1 x 4
     pulsars, and the posterior's at its 4 theta), at the wide case's
     grams with 16 chains and at nb = 470, m2 = 28 (16 chains x 4
@@ -125,7 +137,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
     to run, no ptxas spill; times beside the library calls and bounds
     (the kernels line takes the posterior's 4-theta row, the shape at
     which K5bw runs on the path);
-21. ``mcmc gls`` / ``mcmc wls``: the timing posterior of the par/tim
+22. ``mcmc gls`` / ``mcmc wls``: the timing posterior of the par/tim
     case (``BayesianTiming``: the par with ECORR and red noise fixed;
     the white par), its model fitted on the card and then set to JAX's
     fitted bits (the card's fit held to JAX's first), sampled by
@@ -137,12 +149,12 @@ the closing ``{"ok": true, ...}`` line is not printed:
     acceptance fraction; the Kepler depth JAX chose; launches of K1, K2, K7, K8, K9 (K9 = 4
     per step); cold and warm wall, posterior evaluations per second,
     busy share, peak memory;
-22. ``k9``: K9 against its plain version at the GLS chain's first
+23. ``k9``: K9 against its plain version at the GLS chain's first
     half-move (16 x 10) and at 4096 x 64: bit-identical and
     bit-identical run to run; time of a half-move, plain time, bound;
     ``mcmc autocorr``: ``EnsembleSampler.run_mcmc_autocorr`` on a 2-D
     Gaussian from the generator: converged, variance within 15 %;
-23. ``stream gls`` / ``stream wls``: the streaming appends of the
+24. ``stream gls`` / ``stream wls``: the streaming appends of the
     par/tim case (the par; the white par) in the 10842 bucket:
     ``fit_toas(maxiter=3)``, ``stream_prepare()`` and
     ``append_refit(night, maxiter=3)`` for the 11 nights of
@@ -160,13 +172,13 @@ the closing ``{"ok": true, ...}`` line is not printed:
     wall, the median append latency over nights 1-9, the cold
     from-scratch prepare + fit of the merged data, the busy share of one
     append, peak memory;
-24. ``k10``: K10 against its plain version at the GLS and WLS captures'
+25. ``k10``: K10 against its plain version at the GLS and WLS captures'
     own inputs and at the GLS fold's shape (32 x 473 onto the packed
     moments): within ``tolerances.stream_moments_limit``,
     bit-identical run to run; time beside the plain version, one
     ``torch.addmm`` (A w precomputed), the same with A w formed inside
     the timed call, and the bound;
-25. the ``kernels`` JSON line: per kernel its launches on its main path
+26. the ``kernels`` JSON line: per kernel its launches on its main path
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
     K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
@@ -979,27 +991,29 @@ def phase_k3(st_case):
 
 
 def phase_k4(ost):
-    """K4 against its plain version at the OS's shapes; times beside the
-    two-matmul library yardstick."""
+    """K4 against its plain version at the OS's shapes; times beside two
+    library yardsticks: the bare two matmuls Z diag(phihat) Z^T and V V^T
+    on prescaled inputs, and the same with the phihat scaling inside the
+    timed call."""
     import torch
 
-    from pint_tpu_torch.gw.os import os_pairs_cuda, os_pairs_plain
+    from pint_tpu_torch.gw.os import K4, os_pairs_cuda, os_pairs_plain
     from pint_tpu_torch.linalg import kron_pulsar_terms
 
     _, z, M, _ = kron_pulsar_terms(ost.kron_data.gram,
                                    ost.kron_data.phi_noise)
-    ph, ii, jj = ost._phihat, ost._ii_t, ost._jj_t
-    n1, d1 = os_pairs_cuda(z, M, ph, ii, jj)
-    n2, d2 = os_pairs_cuda(z, M, ph, ii, jj)
+    ph = ost._phihat
+    ii, jj = (torch.as_tensor(x, device="cuda") for x in (ost._ii, ost._jj))
+    n_pairs = ii.numel()
+    n1, d1 = os_pairs_cuda(z, M, ph)
+    n2, d2 = os_pairs_cuda(z, M, ph)
     np_, dp = os_pairs_plain(z, M, ph, ii, jj)
     na, da = os_pairs_plain(z.abs(), M.abs(), ph.abs(), ii, jj)
     torch.cuda.synchronize()
     err = max(_check_sum_bound("k4 num", n1, n2, np_, na),
               _check_sum_bound("k4 den", d1, d2, dp, da))
     p, m2 = z.shape
-    n_pairs = ii.numel()
-    nbytes = 8 * (z.numel() + M.numel() + ph.numel() + 2 * n_pairs
-                  + 2 * n_pairs)
+    nbytes = 8 * (z.numel() + M.numel() + ph.numel() + 2 * n_pairs)
     # phihat z and phihat^1/2 M phihat^1/2 once per pulsar, then a dot
     # product of length m2 (num) and m2^2 (den) per pair
     nflops = p * (2 * m2 * m2 + m2) + n_pairs * 2 * (m2 * m2 + m2)
@@ -1010,14 +1024,24 @@ def phase_k4(ost):
 
     def lib():
         return zp @ z.T, V @ V.T
-    ms, how = kernel_ms(lambda: os_pairs_cuda(z, M, ph, ii, jj))
+
+    def lib_scaled():
+        s = torch.sqrt(ph)
+        v = (s[:, None] * M * s[None, :]).reshape(p, m2 * m2)
+        return (z * ph) @ z.T, v @ v.T
+    ms, how = kernel_ms(lambda: os_pairs_cuda(z, M, ph))
     plain, _ = kernel_ms(lambda: os_pairs_plain(z, M, ph, ii, jj))
     lib_ms, _ = kernel_ms(lib)
+    lib_scaled_ms, _ = kernel_ms(lib_scaled)
     out = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+           "library_scaled_ms": lib_scaled_ms,
            "bound_ms": b, "bound_by": by, "max_abs_err": err,
            "timed_by": how, "n_pairs": n_pairs, "m2": m2,
+           "blocks": sum(1 for r in range(0, p, 16) for c in range(0, p, 8)
+                         if r < c + 7),
            "per_call_with_enqueue_ms": cuda_ms(
-               lambda: os_pairs_cuda(z, M, ph, ii, jj))}
+               lambda: os_pairs_cuda(z, M, ph)),
+           **build_report(K4, ("os_pairs_kernel",))}
     log("k4 at the OS's shapes: " + json.dumps(out))
     return out
 
@@ -1190,7 +1214,7 @@ def phase_k5(post):
     import torch
 
     from pint_tpu_torch import tolerances as tol
-    from pint_tpu_torch.linalg import (K5, kron_pulsar_bwd_cuda,
+    from pint_tpu_torch.linalg import (K5, K5B, kron_pulsar_bwd_cuda,
                                        kron_pulsar_bwd_plain,
                                        kron_pulsar_cuda, kron_pulsar_plain)
 
@@ -1233,6 +1257,8 @@ def phase_k5(post):
     out["k5"]["waves"] = out["k5"]["blocks"] / (
         out["k5"]["blocks_per_sm"]
         * torch.cuda.get_device_properties(0).multi_processor_count)
+    out["k5b"].update(build_report(K5B, ("kron_pulsar_bwd_kernel",)))
+    out["k5b"]["shared_bytes"] = K5B.call("kron_pulsar_bwd_smem", nb, m2)
     for label in ("k5", "k5b"):
         log(f"{label} at {c} chains: " + json.dumps(out[label]))
     return out
@@ -1260,8 +1286,10 @@ def k5_times(pre, phi, a, p, cots, ga, gp, labels, reps=50):
                      + sum(t.numel() for t in a))
     fwd_flops = nblk * (nb**3 / 3 + 2 * nb * nb * r + 2 * nb * m2 * m2
                         + 2 * nb * m2 + 4 * nb)
-    bwd_bytes = 8 * (phi.numel() + a[4].numel() + a[5].numel()
-                     + sum(t.numel() for t in cots) + ga.numel())
+    # both backward forms read only L's lower triangle
+    bwd_bytes = 8 * (phi.numel() + nblk * nb * (nb + 1) // 2
+                     + a[5].numel() + sum(t.numel() for t in cots)
+                     + ga.numel())
     bwd_flops = nblk * (nb**3 / 3 + 2 * nb * m2 * m2 + 4 * nb * m2
                         + nb * nb + 12 * nb)
     fb, fby = bound_ms(fwd_bytes, fwd_flops, FP64_TC_FLOPS)
@@ -1533,6 +1561,75 @@ def phase_fit_par_tim(model, toas, ref):
         if not all(launches[k] > 0 for k in need):
             raise AssertionError(f"a kernel of the {name} fit never ran: "
                                  f"{launches}")
+    return out
+
+
+def phase_pulse_numbers(ref):
+    """The two cases of ``pn_answers.npz`` on the card: the gap case
+    under TRACK -2 (pulse numbers from ``compute_pulse_numbers``, then a
+    WLS fit from F0 + 1e-7 Hz) and corpus spin-000 with a PHASE command
+    (nearest tracking after the offset), each held to JAX: the pulse
+    numbers equal, prefit and postfit residuals within
+    ``tolerances.PREFIT_S``, values, uncertainties and chi^2 per
+    iteration within the conditioning-aware fit limits."""
+    import tempfile
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fitter import WLSFitter
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K7
+    from pint_tpu_torch.models.builder import get_model
+    from pint_tpu_torch.toa import get_TOAs
+
+    out, bad = {}, []
+    with tempfile.TemporaryDirectory() as d:
+        for k in ("gap", "phase"):
+            par, tim = os.path.join(d, k + ".par"), os.path.join(d, k + ".tim")
+            for path, key in ((par, "_par"), (tim, "_tim")):
+                with open(path, "w") as f:
+                    f.write(str(ref[k + key]))
+            model = get_model(par)
+            toas = get_TOAs(tim)
+            row = {}
+            if k + "_pn" in ref:
+                pn = toas.compute_pulse_numbers(model, device="cuda")
+                row["pn_equal"] = bool(np.array_equal(pn, ref[k + "_pn"]))
+            model.values["F0"] = float(ref[k + "_start"])
+            K1.launches = K7.launches = 0
+            f = WLSFitter(toas, model, device="cuda")
+            prefit = f.resids.time_resids
+            t0 = time.perf_counter()
+            f.fit_toas(maxiter=3)
+            torch.cuda.synchronize()
+            row["fit_s"] = time.perf_counter() - t0
+            row["launches"] = {"K1": K1.launches, "K7": K7.launches}
+            postfit = f.resids.time_resids
+            free = [str(x) for x in ref[k + "_free"]]
+            lim = tol.fit_tolerances(tol.wls_normal_cond_log10(
+                f.fit_health["cond_log10"]))
+            err = tol.fit_errors(
+                [model.values[p] for p in free],
+                [model.uncertainties[p] for p in free], f.chi2_iters,
+                ref[k + "_values"], ref[k + "_sigmas"],
+                ref[k + "_chi2_iters"])
+            row.update(
+                track_mode=f.resids.track_mode, n_toas=len(toas),
+                prefit_s=float(np.max(np.abs(prefit - ref[k + "_prefit"]))),
+                postfit_s=float(np.max(np.abs(postfit
+                                              - ref[k + "_postfit"]))),
+                errors=err, limits=lim, prefit_limit_s=tol.PREFIT_S)
+            ok = (row.get("pn_equal", True)
+                  and row["prefit_s"] <= tol.PREFIT_S
+                  and row["postfit_s"] <= tol.PREFIT_S
+                  and all(err[q] <= lim[q] for q in err))
+            log(f"pulse numbers {k}: " + json.dumps(row))
+            if not ok:
+                bad.append(k)
+            out[k] = row
+    if bad:
+        raise AssertionError(f"pulse-number cases off JAX's answers: {bad}")
     return out
 
 
@@ -2802,6 +2899,9 @@ def main():
         fits = run("fit_par_tim", phase_fit_par_tim, *ingest[:3])
         if fits is not None:
             k7 = run("k7", phase_k7, fits["wls"]["fitter"])
+    from pint_tpu_torch.convert import PN_ANSWERS, load_arrays
+
+    run("pulse numbers", phase_pulse_numbers, load_arrays(PN_ANSWERS))
     if table is not None and k7 is not None:
         table.append(gw_row("wls_whiten", "wls_whiten.cu",
                             "pint_tpu/fitter.py:152",
@@ -2811,7 +2911,7 @@ def main():
     k8 = None
     if ingest is not None:
         from pint_tpu_torch.convert import (B1855_GRID_ANSWERS,
-                                            B1855_WHITE_PAR, load_arrays)
+                                            B1855_WHITE_PAR)
         from pint_tpu_torch.models.builder import get_model
 
         model_pt, toas_pt = ingest[:2]

@@ -61,6 +61,9 @@ B1855_STREAM_NIGHTS = Path(__file__).resolve().parent / "data" \
     / "b1855_stream_nights.tim"
 B1855_STREAM_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "b1855_stream_answers.npz"
+#: the JAX CPU answers of the pulse-number (TRACK -2) and PHASE-command
+#: fits, with their par and tim text (``tools/export_torch_pn_case.py``)
+PN_ANSWERS = Path(__file__).resolve().parent / "data" / "pn_answers.npz"
 #: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
 #: with the JAX CPU answers of its likelihood and posterior
 PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"

@@ -21,7 +21,8 @@
 // NaN, L included, as cho_factor does.
 //
 // K5b, backward, only through phi.  With dcap = -diag(dphi / phi^2),
-// one block per (chain, pulsar) forms W = L^-1 in shared memory and
+// one block per (chain, pulsar) forms W = L^-1 in shared memory (its
+// design below the forward kernel) and
 //
 //   dphi_k = gld / phi_k - (1 / phi_k^2) [gchi x_u[k]^2
 //            + x_u[k] sum_i gx_i X_uf[k,i]
@@ -68,9 +69,8 @@
 // a block holds 53 kB of shared memory and 80 registers a thread, so 3
 // blocks fit on an SM (the registers bind; capping them at 64 for a
 // fourth block spills and measured slower), and the 1088 blocks of
-// 16 chains x 68 pulsars take 2.75 waves on 132 SMs.  The launcher
-// raises the dynamic limit above 48 kB.  K5b keeps its first design: a
-// 256-thread block, one elimination step per barrier.
+// 16 chains x 68 pulsars take 2.75 waves on 132 SMs.  The launchers
+// raise the dynamic limit above 48 kB.
 
 #include <cmath>
 #include <cstdint>
@@ -439,61 +439,257 @@ __global__ void __launch_bounds__(THREADS) kron_pulsar_fwd_kernel(
       Xg[i * R + c] = fail ? nan : Y[i * ldy + c];
 }
 
-__global__ void kron_pulsar_bwd_kernel(
+// ---------------------------------------------------------------------------
+// K5b's design.  The block's shared memory holds L's lower 8 x 8 tiles,
+// packed by block rows (tile (I, J), J <= I, at I (I + 1) / 2 + J; row
+// stride LDT = 12, = 4 mod 8, so the fragment loads are free of bank
+// conflicts), the capacity padded to NBP = roundup8(nb) with the
+// identity.  Where the block's shared memory also holds them (always at
+// m2 <= 28 and nb <= 160), X, gM and gx are staged beside the tiles;
+// every input arrives by cp.async at once.
+// - W = L^-1 in place of L by block rows: one warp inverts each 8 x 8
+//   diagonal block (a lane per column, forward substitution); every
+//   off-diagonal tile is premultiplied, L'_IJ = W_II L_IJ (a tile on
+//   the MMA, one warp each); then block row I, for I = 1, 2, ..., is
+//   W_IJ = -sum_{J <= K < I} L'_IK W_KJ, one warp per tile on the MMA,
+//   held in registers until every warp has read row I's L' tiles.  The
+//   warp that owns column block J (J mod 8) adds each new tile's column
+//   sums of squares (a fixed shuffle tree) to its running
+//   (cap^-1)_kk = sum_i W_ik^2 in shared memory, in block-row order.
+//   2 barriers a block row, 2 nb / 8 + 2 in all.
+// - T = X_uf gM^T on the MMA, a warp per 8-row block of X, and from T's
+//   accumulator fragments straight away s_k = sum_i X_uf[k,i] T[k,i]
+//   and q_k = sum_i gx_i X_uf[k,i], each lane's share then a fixed
+//   shuffle tree over the 4 lanes of a row: T never reaches memory.
+// - dphi_k, a thread per k.
+// Bound on an H100 SXM at 16 chains x 68 pulsars, nb = 63, m2 = 28: it
+// reads L's lower triangle (17.5 MB), X (16 MB) and gM (7 MB), ~12 us
+// of bytes; its ~0.1 MFLOP a block are far below that.
+// Shared memory: nt (nt + 1) / 2 tiles of 96 doubles for nt = NBP / 8,
+// under the first form's nb (nb + m2) doubles wherever that fitted, so
+// the narrow K5b takes every shape it took (any m2 at nb <= 184).  At
+// nb = 63, m2 = 28: 54 kB with X, gM and gx staged.
+
+#define LDT 12
+#define TILE (8 * LDT)
+#define MAXSLOT 3  // column blocks a warp owns: nt <= 24
+
+__host__ __device__ __forceinline__ int pad4(int x) { return x + ((4 - x) & 7); }
+
+// shared doubles of K5b's tiles (and dk, sx) and of its staged X, gM, gx
+__host__ __device__ __forceinline__ long long bwd_tile_doubles(int nb) {
+  const int nt = round8(nb) >> 3;
+  return (long long)((nt * (nt + 1)) >> 1) * TILE + 2 * round8(nb);
+}
+__host__ __device__ __forceinline__ long long bwd_stage_doubles(int nb,
+                                                                int m2) {
+  return (long long)round8(nb) * pad4(m2 + 1) + (long long)m2 * pad4(m2) +
+         m2;
+}
+
+// one warp: the 8 x 8 lower tile T (row stride LDT) replaced by its
+// inverse, lane c < 8 forming column c
+__device__ __forceinline__ void tri_inv8(double* T, int lane) {
+  const int c = lane & 7;
+  double col[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    double acc = i == c ? 1.0 : 0.0;
+#pragma unroll
+    for (int q = 0; q < i; ++q)
+      if (q >= c) acc = acc - T[i * LDT + q] * col[q];
+    col[i] = i < c ? 0.0 : acc / T[i * LDT + i];
+  }
+  __syncwarp();
+  if (lane < 8) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) T[i * LDT + c] = col[i];
+  }
+  __syncwarp();
+}
+
+// d[0..7] (+)= the column sums of squares of an 8 x 8 accumulator
+// fragment (lane (r, c4) holds columns 2 c4, 2 c4 + 1 of row r): a fixed
+// tree over the 8 lanes of each column; the lanes of row 0 write
+__device__ __forceinline__ void col_sq(double* d, double v0, double v1,
+                                       int lane, bool first) {
+  double q0 = v0 * v0, q1 = v1 * v1;
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    q0 = q0 + __shfl_xor_sync(FULL, q0, off);
+    q1 = q1 + __shfl_xor_sync(FULL, q1, off);
+  }
+  if (lane < 4) {
+    d[2 * lane] = first ? q0 : d[2 * lane] + q0;
+    d[2 * lane + 1] = first ? q1 : d[2 * lane + 1] + q1;
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) kron_pulsar_bwd_kernel(
     const double* __restrict__ phi, const double* __restrict__ L,
     const double* __restrict__ X, const double* __restrict__ gchi,
     const double* __restrict__ gx, const double* __restrict__ gm,
-    const double* __restrict__ gld, double* __restrict__ gphi, int64_t nb,
-    int64_t m2) {
+    const double* __restrict__ gld, double* __restrict__ gphi, int nb,
+    int m2, int staged) {
   extern __shared__ double smem[];
-  const int64_t blk = blockIdx.x;
-  const int64_t R = 1 + m2;
-  double* W = smem;            // (nb, nb) L^-1, lower
-  double* T = smem + nb * nb;  // (nb, m2) T[k, i] = sum_j gM_ij X_uf[k, j]
-  const double* Lb = L + blk * nb * nb;
-  const double* Xb = X + blk * nb * R;
-  const double* gmb = gm + blk * m2 * m2;
-  const double* gxb = gx + blk * m2;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
+  const int nbp = round8(nb), nt = nbp >> 3, R = m2 + 1;
+  const int ntt = (nt * (nt + 1)) >> 1;
+  double* Lt = smem;               // packed tiles: L, then W = L^-1
+  double* dk = Lt + ntt * TILE;    // (nbp) (cap^-1)_kk
+  double* sx = dk + nbp;           // (nbp) gchi x_u^2 + x_u q + s
+  double* Xs = sx + nbp;           // staged X (nbp, ldxs)
+  const int ldxs = pad4(R), ldgs = pad4(m2);
+  double* Gs = Xs + nbp * ldxs;    // staged gM (m2, ldgs)
+  double* gxs = Gs + m2 * ldgs;    // staged gx (m2)
+  const int blk = blockIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int lr = lane >> 2, lc = lane & 3;
+  const double* Lb = L + (size_t)blk * nb * nb;
+  const double* Xb = X + (size_t)blk * nb * R;
+  const double* gmb = gm + (size_t)blk * m2 * m2;
+  const double* gxb = gx + (size_t)blk * m2;
 
-  for (int64_t idx = tid; idx < nb * nb; idx += nt)
-    W[idx] = (idx / nb == idx % nb) ? 1.0 : 0.0;
-  // L W = I, row by row; W stays lower triangular
-  for (int64_t i = 0; i < nb; ++i) {
-    __syncthreads();
-    const double d = Lb[i * nb + i];
-    for (int64_t c = tid; c <= i; c += nt) W[i * nb + c] /= d;
-    __syncthreads();
-    const int64_t w = i + 1;
-    for (int64_t idx = tid; idx < (nb - i - 1) * w; idx += nt) {
-      const int64_t k = i + 1 + idx / w, c = idx % w;
-      W[k * nb + c] -= Lb[k * nb + i] * W[i * nb + c];
+  // L's lower tiles by cp.async (the pads: identity, zeros above the
+  // diagonal), and X, gM, gx where staged
+  {
+    int t = 0;
+    for (int I = 0; I < nt; ++I)
+      for (int J = 0; J <= I; ++J, ++t) {
+        if ((t & 7) != warp) continue;
+        double* T = Lt + t * TILE;
+        for (int e = lane; e < 64; e += 32) {
+          const int r = e >> 3, c = e & 7;
+          const int gr = (I << 3) + r, gc = (J << 3) + c;
+          if (gr < nb && gc <= gr) cp_async8(T + r * LDT + c, Lb + gr * nb + gc);
+          else T[r * LDT + c] = gr == gc ? 1.0 : 0.0;
+        }
+      }
+  }
+  const double* Xr = Xb;
+  const double* Gr = gmb;
+  const double* gxr = gxb;
+  int ldx = R, ldg = m2;
+  if (staged) {
+    for (int i = warp; i < nb; i += WARPS)
+      for (int c = lane; c < R; c += 32)
+        cp_async8(Xs + i * ldxs + c, Xb + i * R + c);
+    for (int i = warp; i < m2; i += WARPS)
+      for (int c = lane; c < m2; c += 32)
+        cp_async8(Gs + i * ldgs + c, gmb + i * m2 + c);
+    for (int c = tid; c < m2; c += THREADS) cp_async8(gxs + c, gxb + c);
+    Xr = Xs;
+    Gr = Gs;
+    gxr = gxs;
+    ldx = ldxs;
+    ldg = ldgs;
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  const double gc = gchi[blk], gl = gld[blk];
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // s_k and q_k from T = X_uf gM^T, a warp per 8-row block
+  for (int rt = warp; rt < nt; rt += WARPS) {
+    const int row = (rt << 3) + lr;
+    const bool vr = row < nb;
+    const double* xrow = Xr + (vr ? row : 0) * ldx + 1;
+    double s = 0.0, q = 0.0;
+    for (int c0 = 0; c0 < m2; c0 += 8) {
+      const int gi = c0 + lr;
+      const double* grow = Gr + (gi < m2 ? gi : 0) * ldg;
+      double t0 = 0.0, t1 = 0.0;
+      for (int kb = 0; kb < m2; kb += 4) {
+        const int j = kb + lc;
+        dmma(t0, t1, vr && j < m2 ? xrow[j] : 0.0,
+             gi < m2 && j < m2 ? grow[j] : 0.0);
+      }
+      const int i0 = c0 + 2 * lc, i1 = i0 + 1;
+      const double x0 = vr && i0 < m2 ? xrow[i0] : 0.0;
+      const double x1 = vr && i1 < m2 ? xrow[i1] : 0.0;
+      s = s + x0 * t0;
+      s = s + x1 * t1;
+      q = q + (i0 < m2 ? gxr[i0] : 0.0) * x0;
+      q = q + (i1 < m2 ? gxr[i1] : 0.0) * x1;
+    }
+    s = s + __shfl_xor_sync(FULL, s, 1);
+    q = q + __shfl_xor_sync(FULL, q, 1);
+    s = s + __shfl_xor_sync(FULL, s, 2);
+    q = q + __shfl_xor_sync(FULL, q, 2);
+    if (vr && lc == 0) {
+      const double xu = xrow[-1];
+      sx[row] = gc * (xu * xu) + xu * q + s;
     }
   }
-  for (int64_t idx = tid; idx < nb * m2; idx += nt) {
-    const int64_t k = idx / m2, i = idx % m2;
-    double acc = 0.0;
-    for (int64_t j = 0; j < m2; ++j)
-      acc += gmb[i * m2 + j] * Xb[k * R + 1 + j];
-    T[idx] = acc;
+
+  // the diagonal blocks' inverses; the owner of column block J (the
+  // warp J mod 8) starts its column sums in dk
+  for (int J = warp; J < nt; J += WARPS) {
+    double* T = Lt + ((J * (J + 3)) >> 1) * TILE;
+    tri_inv8(T, lane);
+    col_sq(dk + (J << 3), T[lr * LDT + 2 * lc], T[lr * LDT + 2 * lc + 1],
+           lane, true);
   }
   __syncthreads();
-  const double gc = gchi[blk];
-  const double gl = gld[blk];
-  for (int64_t k = tid; k < nb; k += nt) {
-    const double v = phi[blk * nb + k];
-    if (!(v >= PHI_FLOOR)) {
-      gphi[blk * nb + k] = 0.0;
-      continue;
+  // L'_IJ = W_II L_IJ below the diagonal, a warp per tile
+  {
+    int t = 0;
+    for (int I = 1; I < nt; ++I) {
+      const double* Wd = Lt + ((I * (I + 3)) >> 1) * TILE;
+      const int row0 = (I * (I + 1)) >> 1;
+      for (int J = 0; J < I; ++J, ++t) {
+        if ((t & 7) != warp) continue;
+        double* T = Lt + (row0 + J) * TILE;
+        double d0 = 0.0, d1 = 0.0;
+#pragma unroll
+        for (int kb = 0; kb < 8; kb += 4)
+          dmma(d0, d1, Wd[lr * LDT + kb + lc], T[(kb + lc) * LDT + lr]);
+        __syncwarp();
+        T[lr * LDT + 2 * lc] = d0;
+        T[lr * LDT + 2 * lc + 1] = d1;
+      }
     }
-    const double xu = Xb[k * R];
-    double q = 0.0, s = 0.0, dk = 0.0;
-    for (int64_t i = 0; i < m2; ++i) q += gxb[i] * Xb[k * R + 1 + i];
-    for (int64_t i = 0; i < m2; ++i) s += Xb[k * R + 1 + i] * T[k * m2 + i];
-    for (int64_t i = k; i < nb; ++i) dk += W[i * nb + k] * W[i * nb + k];
-    const double br = gc * (xu * xu) + xu * q + s + gl * dk;
-    gphi[blk * nb + k] = gl / v - br / (v * v);
+  }
+  __syncthreads();
+  // block rows of W: W_IJ = -sum_{J <= K < I} L'_IK W_KJ
+  for (int I = 1; I < nt; ++I) {
+    const int row0 = (I * (I + 1)) >> 1;
+    double acc[MAXSLOT][2];
+#pragma unroll
+    for (int sl = 0; sl < MAXSLOT; ++sl) {
+      const int J = warp + (sl << 3);
+      acc[sl][0] = acc[sl][1] = 0.0;
+      if (J < I) {
+        for (int K = J; K < I; ++K) {
+          const double* A = Lt + (row0 + K) * TILE;
+          const double* B = Lt + (((K * (K + 1)) >> 1) + J) * TILE;
+#pragma unroll
+          for (int kb = 0; kb < 8; kb += 4)
+            dmma(acc[sl][0], acc[sl][1], -A[lr * LDT + kb + lc],
+                 B[(kb + lc) * LDT + lr]);
+        }
+      }
+    }
+    __syncthreads();  // row I's L' tiles are read
+#pragma unroll
+    for (int sl = 0; sl < MAXSLOT; ++sl) {
+      const int J = warp + (sl << 3);
+      if (J < I) {
+        double* T = Lt + (row0 + J) * TILE;
+        T[lr * LDT + 2 * lc] = acc[sl][0];
+        T[lr * LDT + 2 * lc + 1] = acc[sl][1];
+        col_sq(dk + (J << 3), acc[sl][0], acc[sl][1], lane, false);
+      }
+    }
+    __syncthreads();  // row I's W tiles (and dk) are written
+  }
+  for (int k = tid; k < nb; k += THREADS) {
+    const double v = phi[(size_t)blk * nb + k];
+    double g = 0.0;
+    if (v >= PHI_FLOOR) {
+      const double br = sx[k] + gl * dk[k];
+      g = gl / v - br / (v * v);
+    }
+    gphi[(size_t)blk * nb + k] = g;
   }
 }
 
@@ -843,16 +1039,34 @@ extern "C" int kron_pulsar_fwd_launch(
   return (int)cudaGetLastError();
 }
 
+// K5b's shared bytes at (nb, m2): the tiles, with X, gM and gx staged
+// where they fit beside them; 0 where the tiles alone do not fit
+static long long bwd_smem_bytes(int64_t nb, int64_t m2) {
+  if (nb < 1 || nb > (MAXSLOT << 6) || m2 < 0 || m2 > (1 << 20)) return 0;
+  const long long t = 8 * bwd_tile_doubles((int)nb);
+  const long long s = t + 8 * bwd_stage_doubles((int)nb, (int)m2);
+  return s <= WIDE_SMEM_BYTES ? s : (t <= WIDE_SMEM_BYTES ? t : 0);
+}
+
 extern "C" int kron_pulsar_bwd_launch(
     const double* phi, const double* L, const double* X, const double* gchi,
     const double* gx, const double* gm, const double* gld, double* gphi,
     int64_t n_blocks, int64_t nb, int64_t m2, cudaStream_t stream) {
-  const size_t bytes = sizeof(double) * (nb * nb + nb * m2);
-  int err = smem_limit((const void*)kron_pulsar_bwd_kernel, bytes);
+  const long long bytes = bwd_smem_bytes(nb, m2);
+  if (!bytes) return (int)cudaErrorInvalidValue;
+  const int staged =
+      bytes > 8 * bwd_tile_doubles((int)nb);  // X, gM, gx staged
+  int err = smem_limit((const void*)kron_pulsar_bwd_kernel, (size_t)bytes);
   if (err) return err;
-  kron_pulsar_bwd_kernel<<<(unsigned)n_blocks, THREADS, bytes, stream>>>(
-      phi, L, X, gchi, gx, gm, gld, gphi, nb, m2);
+  kron_pulsar_bwd_kernel<<<(unsigned)n_blocks, THREADS, (size_t)bytes,
+                           stream>>>(phi, L, X, gchi, gx, gm, gld, gphi,
+                                     (int)nb, (int)m2, staged);
   return (int)cudaGetLastError();
+}
+
+// K5b's shared bytes at (nb, m2), 0 where it does not take the shape
+extern "C" int kron_pulsar_bwd_smem(int64_t nb, int64_t m2) {
+  return (int)bwd_smem_bytes(nb, m2);
 }
 
 // K5 blocks that fit on one SM at this width

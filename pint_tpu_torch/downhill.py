@@ -82,7 +82,8 @@ class _DownhillMixin:
         if fit_noise:
             raise NotImplementedError(
                 "fit_noise: the noise-parameter stage is not ported "
-                "(ROADMAP queue 1 item 3: lnlikelihood_at)")
+                "(ROADMAP queue 1 item 11: it waits for a reverse-mode "
+                "rule of kernel K2, segment_sum, and the noise stage)")
         return super().fit_toas(maxiter=maxiter)
 
 

@@ -539,7 +539,8 @@ class Fitter:
                     "counts": ()}
         mprep._noise_basis_comps = []
         mres = Residuals(mtoas, self.model, prepared=mprep,
-                         subtract_mean=False)
+                         subtract_mean=False,
+                         track_mode=self.resids.track_mode)
         data = {}
         if self._frozen_names:
             frozen, tzr_frozen = mprep.frozen_delay_leaves(
@@ -668,7 +669,8 @@ class Fitter:
                 mini_ctx=_mini.prep.ctx if _mini is not None else None)
             if prepared is not None:
                 resids = Residuals(merged, self.model, prepared=prepared,
-                                   subtract_mean=self.resids.subtract_mean)
+                                   subtract_mean=self.resids.subtract_mean,
+                                   track_mode=self.resids.track_mode)
                 if resids.structure_key() != self.resids.structure_key():
                     # a static of the ctx changed under the new span
                     # (e.g. the Kepler depth): re-prepare in full
@@ -677,7 +679,8 @@ class Fitter:
             self.stream_counts["reprepares"] += 1
             self.toas = merged
             self.resids = Residuals(merged, self.model, device=self.device,
-                                    subtract_mean=self.resids.subtract_mean)
+                                    subtract_mean=self.resids.subtract_mean,
+                                    track_mode=self.resids.track_mode)
             self.prepared = self.resids.prepared
             self._stream = None
             self._retrace()

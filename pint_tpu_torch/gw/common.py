@@ -95,7 +95,10 @@ def build_pulsar_data(pairs, *, nmodes=10, tspan_s=None,
     if len(pairs) < 2:
         raise ValueError(f"a cross-correlation analysis needs >= 2 "
                          f"pulsars, got {len(pairs)}")
-    resids = [Residuals(t, m, tzr, device=device) for m, t, tzr in pairs]
+    # nearest tracking, as the reference pins it (a TRACK -2 par does
+    # not need pulse numbers here)
+    resids = [Residuals(t, m, tzr, device=device, track_mode="nearest")
+              for m, t, tzr in pairs]
     T = float(tspan_s) if tspan_s else common_tspan_s(
         [r.toas for r in resids])
     pos = pulsar_positions([r.model for r in resids])

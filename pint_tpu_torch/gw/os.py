@@ -38,7 +38,7 @@ GWB_GAMMA = 13.0 / 3.0
 
 #: kernel K4 (replaces pint_tpu gw/os.py:86 _pair_num_den)
 K4 = CudaKernel("os_pair_stage", "os_pairs.cu", "os_pairs_launch",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 2)
+                [ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2)
 
 
 class OSResult(NamedTuple):
@@ -70,38 +70,40 @@ def os_pairs_plain(z, M, phihat, ii, jj):
     return num, den
 
 
-def os_pairs_cuda(z, M, phihat, ii, jj):
-    """Kernel K4 on CUDA tensors; raises on what it does not take."""
+def os_pairs_cuda(z, M, phihat):
+    """Kernel K4 on CUDA tensors: (num, den) (P (P - 1) / 2,) over every
+    pair a < b in :func:`~pint_tpu_torch.gw.orf.pair_indices` order, the
+    row-major upper triangle; raises on what it does not take."""
     dev = z.device
-    if dev.type != "cuda" or any(x.device != dev for x in (M, phihat, ii,
-                                                            jj)):
+    if dev.type != "cuda" or any(x.device != dev for x in (M, phihat)):
         raise ValueError("os_pairs_cuda: inputs must be on one CUDA device")
-    if any(x.dtype != torch.float64 for x in (z, M, phihat)) \
-            or ii.dtype != torch.int64 or jj.dtype != torch.int64:
-        raise ValueError("os_pairs_cuda: z, M, phihat float64; ii, jj int64")
+    if any(x.dtype != torch.float64 for x in (z, M, phihat)):
+        raise ValueError("os_pairs_cuda: z, M, phihat must be float64")
     p, m2 = z.shape
-    if M.shape != (p, m2, m2) or phihat.shape != (m2,) \
-            or ii.shape != jj.shape or ii.dim() != 1:
+    if M.shape != (p, m2, m2) or phihat.shape != (m2,):
         raise ValueError("os_pairs_cuda: shapes z (P, m2), M (P, m2, m2), "
-                         "phihat (m2,), ii = jj (n_pairs,)")
+                         "phihat (m2,)")
+    if p * m2 * m2 >= 2**31 or p * p >= 2**31:
+        raise ValueError("os_pairs_cuda: P m2^2 and P^2 must stay under "
+                         "2^31")
     z, M, phihat = z.contiguous(), M.contiguous(), phihat.contiguous()
-    ii, jj = ii.contiguous(), jj.contiguous()
-    n = ii.numel()
-    num = torch.empty(n, dtype=torch.float64, device=dev)
-    den = torch.empty(n, dtype=torch.float64, device=dev)
-    if n:
+    n_pairs = p * (p - 1) // 2
+    num = torch.empty(n_pairs, dtype=torch.float64, device=dev)
+    den = torch.empty(n_pairs, dtype=torch.float64, device=dev)
+    if n_pairs:
         K4.launch(dev, z.data_ptr(), M.data_ptr(), phihat.data_ptr(),
-                  ii.data_ptr(), jj.data_ptr(), num.data_ptr(),
-                  den.data_ptr(), n, m2)
+                  num.data_ptr(), den.data_ptr(), p, m2)
     return num, den
 
 
-def os_pairs(z, M, phihat, ii, jj):
-    """The pair stage: K4 for CUDA tensors, the plain version for CPU
-    tensors."""
+def os_pairs(z, M, phihat):
+    """The pair stage over every pair a < b in
+    :func:`~pint_tpu_torch.gw.orf.pair_indices` order: K4 for CUDA
+    tensors, the plain version for CPU tensors."""
     if z.device.type == "cuda":
-        return os_pairs_cuda(z, M, phihat, ii, jj)
+        return os_pairs_cuda(z, M, phihat)
     if z.device.type == "cpu":
+        ii, jj = torch.triu_indices(z.shape[0], z.shape[0], 1)
         return os_pairs_plain(z, M, phihat, ii, jj)
     raise ValueError(f"os_pairs: no version for {z.device}")
 
@@ -147,8 +149,6 @@ class OptimalStatistic:
         self._ii, self._jj = ii, jj
         self.n_pairs = len(ii)
         self._gvals = self.orf[ii, jj]
-        self._ii_t = torch.as_tensor(ii, device=self.device)
-        self._jj_t = torch.as_tensor(jj, device=self.device)
         self._gvals_t = torch.as_tensor(self._gvals, device=self.device)
         self._phihat = torch.as_tensor(
             gwb_phi(self.freqs, 1.0, self.gamma, self.df),
@@ -166,7 +166,7 @@ class OptimalStatistic:
         """(rho, sig, ahat2, snr, sigma_ahat2) tensors at the noise
         weights ``phi_noise`` (P, nb_max)."""
         _, z, M, _ = kron_pulsar_terms(self.kron_data.gram, phi_noise)
-        num, den = os_pairs(z, M, self._phihat, self._ii_t, self._jj_t)
+        num, den = os_pairs(z, M, self._phihat)
         return _os_sums(num, den, self._gvals_t)
 
     def compute(self) -> OSResult:

@@ -979,13 +979,16 @@ def _check_cuda(name, tensors):
 def k5_shared_bytes(nb, m2):
     """Shared memory of one K5 block (the capacity padded to a multiple
     of 8 and its right-hand sides to one of 16, row strides + 4, and
-    below 3 block rows the diagonal blocks' inverses;
-    csrc/kron_pulsar.cu) and of one K5b block."""
+    below 3 block rows the diagonal blocks' inverses) and the least of
+    one K5b block (L's lower 8 x 8 tiles of 96 doubles and two
+    nb-vectors; the library stages X, gM and gx beside them where they
+    fit, ``K5B.call("kron_pulsar_bwd_smem", nb, m2)``;
+    csrc/kron_pulsar.cu)."""
     nbp, rp = -(-nb // 8) * 8, -(-(1 + m2) // 16) * 16
     nt = nbp // 8
     return (8 * (nbp * (nbp + 4) + nbp * (rp + 4) + (nt * 96 if nt < 3
                                                      else 0)),
-            8 * (nb * nb + nb * m2))
+            8 * (nt * (nt + 1) // 2 * 96 + 2 * nbp))
 
 
 def _k5_shape(nb, m2):

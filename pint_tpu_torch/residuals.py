@@ -1,5 +1,9 @@
 """Residuals: observed-minus-model phase and time residuals (pint_tpu
-residuals.py), nearest-pulse tracking with weighted-mean subtraction.
+residuals.py) with weighted-mean subtraction, under either track mode:
+nearest-pulse tracking (each TOA's phase to its nearest integer, after
+any ``PHASE``-command offset), or tracking by the ``-pn`` pulse numbers
+the TOAs carry (``TRACK -2``), whose integer part is differenced in
+int64 so that 10^11-turn counts stay exact.
 
 chi^2 goes through the Woodbury identity over the noise basis, which is
 always carried as a :class:`~pint_tpu_torch.linalg.StructuredU`: dense
@@ -28,15 +32,48 @@ def weighted_mean_phase(frac, weights):
     return torch.sum(frac * weights) / torch.sum(weights)
 
 
+def _resolve_track_mode(track_mode, model, pn):
+    """The track mode (pint_tpu residuals.py:84-111): an explicit
+    ``track_mode`` first, then the par's TRACK -2 / 0, then pulse numbers
+    when every TOA carries one.  Raises ValueError on an unknown mode and
+    on pulse-number tracking without a complete set of pulse numbers."""
+    if track_mode is None or track_mode == "auto":
+        track = model.meta.get("TRACK", "")
+        if track == "-2":
+            track_mode = "use_pulse_numbers"
+        elif track == "0":
+            track_mode = "nearest"
+        elif pn is not None and not np.any(np.isnan(pn)):
+            track_mode = "use_pulse_numbers"
+        else:
+            track_mode = "nearest"
+    if track_mode == "pulse_number":
+        track_mode = "use_pulse_numbers"
+    if track_mode not in ("nearest", "use_pulse_numbers"):
+        raise ValueError(f"unknown track_mode {track_mode!r}")
+    if track_mode == "use_pulse_numbers":
+        if pn is None:
+            raise ValueError(
+                "track_mode requires pulse numbers but the TOAs carry no "
+                "-pn flags (use toas.compute_pulse_numbers)")
+        if np.any(np.isnan(pn)):
+            raise ValueError("Pulse numbers are missing on some TOAs")
+    return track_mode
+
+
 class Residuals:
     """Residuals bound to (toas, model) on ``device`` (CUDA unless
     given).  ``tzr`` is the one-row TZR table, or None; ingest
     :class:`~pint_tpu_torch.toa.TOAs` bring their own (see
     ``TimingModel.tables``).  ``subtract_mean=False`` keeps the weighted
-    mean in (the simulation's phase inversion)."""
+    mean in (the simulation's phase inversion).  ``track_mode`` is
+    "nearest" or "use_pulse_numbers" ("pulse_number" is accepted); None
+    resolves it as pint_tpu does (residuals.py:84-111): the par's
+    ``TRACK -2`` or ``TRACK 0`` first, else pulse numbers when every TOA
+    carries ``-pn``, else nearest."""
 
     def __init__(self, toas, model, tzr=None, device=None,
-                 subtract_mean=True, prepared=None):
+                 subtract_mean=True, prepared=None, track_mode=None):
         # bucketing (pint_tpu_torch.compile_cache.pad_toas): pad rows
         # past n_real carry ~zero weight; the dof and the likelihood's
         # count use the real rows, and its logdet masks the pad rows.
@@ -61,13 +98,26 @@ class Residuals:
         self._valid = None if valid is None else torch.as_tensor(
             valid, device=self.device)
         self._U_ext = prepared.structured_basis()
+        pn = self.toas.get_pulse_numbers()
+        self.track_mode = _resolve_track_mode(track_mode, model, pn)
+        #: int64 pulse numbers under use_pulse_numbers, else None
+        self._pn = None
+        if self.track_mode == "use_pulse_numbers":
+            self._pn = torch.as_tensor(pn.astype(np.int64),
+                                       device=self.device)
+        dpn = self.toas.get_delta_pulse_numbers()
+        #: PHASE-command offsets [turns], None when all zero
+        self._dpn = torch.as_tensor(dpn, dtype=torch.float64,
+                                    device=self.device) \
+            if np.any(dpn != 0.0) else None
 
     def structure_key(self):
         """What the step computes besides data (the port's counterpart
         of pint_tpu's trace key, residuals.py:224): the component set,
         each ctx's static entries (the Kepler depth, ECORR counts, the
         comb's df), the noise basis widths, the mean convention and the
-        presence of the pad mask.  Shapes alone never decide."""
+        presence of the pad mask, the track mode and the presence of
+        pulse numbers and PHASE offsets.  Shapes alone never decide."""
         prep = self.prepared
         statics = tuple(
             (name, k, repr(v)) for name, ctx in prep.ctx.items()
@@ -77,7 +127,8 @@ class Residuals:
                        for c in prep._noise_basis_comps)
         return (tuple(type(c).__name__ for c in self.model.components),
                 statics, widths, self.subtract_mean,
-                self._valid is not None)
+                self._valid is not None, self.track_mode,
+                self._pn is not None, self._dpn is not None)
 
     @property
     def dof(self) -> int:
@@ -90,18 +141,31 @@ class Residuals:
         return self.prepared.scaled_sigma_fn(values)
 
     def phase_resids_at(self, values, data=None):
-        """Nearest-pulse phase residuals [turns], weighted mean removed.
-        ``data`` may carry precomputed frozen-component delays
-        (``frozen``/``tzr_frozen``)."""
+        """Phase residuals [turns] under the track mode, weighted mean
+        removed (pint_tpu residuals.py:313-331).  ``data`` may carry
+        precomputed frozen-component delays (``frozen``/``tzr_frozen``)."""
         data = data or {}
         prep = self.prepared
-        _, frac = prep._phase_raw_at(
+        n, frac = prep._phase_raw_at(
             values, prep.batch, prep.ctx, prep.tzr_batch, prep.tzr_ctx,
             frozen=data.get("frozen"), tzr_frozen=data.get("tzr_frozen"))
+        if self._pn is not None:
+            # model phase minus the assigned pulse number, the integers
+            # first: a float64 turn count would round at 4e11 turns
+            resid = (n - self._pn).to(torch.float64) + frac
+            if self._dpn is not None:
+                resid = resid + self._dpn
+        else:
+            resid = frac
+            if self._dpn is not None:
+                # PHASE commands shift the phase before the nearest-
+                # integer assignment
+                resid = resid + self._dpn
+                resid = resid - torch.round(resid)
         if not self.subtract_mean:
-            return frac
+            return resid
         w = 1.0 / self.sigma_at(values) ** 2
-        return frac - weighted_mean_phase(frac, w)
+        return resid - weighted_mean_phase(resid, w)
 
     def time_resids_at(self, values, data=None):
         return self.phase_resids_at(values, data) / values["F0"]
@@ -172,6 +236,11 @@ class Residuals:
         return float(self.lnlikelihood_at(self.prepared.values_dict(values)))
 
     # -- host accessors --------------------------------------------------------
+    @property
+    def phase_resids(self) -> np.ndarray:
+        v = self.prepared.values_dict()
+        return self.phase_resids_at(v).detach().cpu().numpy()
+
     @property
     def time_resids(self) -> np.ndarray:
         v = self.prepared.values_dict()

@@ -32,7 +32,10 @@ def zero_residuals(toas: TOAs, model, iterations=2, device=None):
     """Shift TOA ticks so model residuals vanish (phase inversion by
     Newton iteration; two passes reach sub-ns)."""
     for _ in range(iterations):
-        r = Residuals(toas, model, device=device, subtract_mean=False)
+        # nearest tracking pinned: fake TOAs carry no -pn flags, and a
+        # TRACK -2 par must still simulate (as pint_tpu pins it)
+        r = Residuals(toas, model, device=device, subtract_mean=False,
+                      track_mode="nearest")
         resid_sec = r.time_resids
         toas.ticks = toas.ticks - np.round(resid_sec * 2**32).astype(np.int64)
         toas._compute_posvels()

@@ -521,6 +521,36 @@ class TOAs:
                     [t.planet_pos[b] for t in toas_list])
         return new
 
+    # -- pulse numbers (pint_tpu toa.py:481-510) ------------------------------
+    def get_pulse_numbers(self):
+        """Per-TOA absolute pulse numbers from ``-pn`` flags (float64,
+        NaN where absent), or None when no TOA carries one."""
+        if not any("pn" in f for f in self.flags):
+            return None
+        return np.array([float(f["pn"]) if "pn" in f else np.nan
+                         for f in self.flags])
+
+    def get_delta_pulse_numbers(self):
+        """Accumulated PHASE-command / ``-padd`` phase offsets (turns),
+        zero where absent."""
+        return np.array([float(f.get("padd", 0.0)) for f in self.flags])
+
+    def compute_pulse_numbers(self, model, device=None):
+        """Assign ``-pn`` flags = the nearest-integer absolute pulse
+        number under ``model`` (computed on ``device``, CUDA unless
+        given): the anchor of TRACK -2 phase-connected fitting.  Returns
+        the pulse numbers (int64)."""
+        from pint_tpu_torch.residuals import Residuals
+
+        r = Residuals(self, model, device=device, subtract_mean=False,
+                      track_mode="nearest")
+        with torch.no_grad():
+            n, _ = r.prepared.phase()
+        pn = n.cpu().numpy().astype(np.int64)
+        for f, p in zip(self.flags, pn):
+            f["pn"] = repr(int(p))
+        return pn
+
     def to_table(self) -> "TOATable":
         """The columnar host table: flag keys sorted, each key's values
         sorted, -1 where a TOA lacks the key."""
@@ -592,6 +622,26 @@ class TOATable:
         if hit.size == 0:
             return np.zeros(len(self), dtype=bool)
         return np.asarray(index) == int(hit[0])
+
+    def _flag_floats(self, key, missing):
+        """Flag ``key`` per TOA as float64, ``missing`` where absent."""
+        names, index = self.flags[key]
+        vals = np.array([float(n) for n in names] + [missing])
+        return vals[np.where(np.asarray(index) >= 0, index, len(names))]
+
+    def get_pulse_numbers(self):
+        """Per-TOA absolute pulse numbers from ``-pn`` flags (float64,
+        NaN where absent), or None when no TOA carries one."""
+        if "pn" not in self.flags:
+            return None
+        return self._flag_floats("pn", np.nan)
+
+    def get_delta_pulse_numbers(self):
+        """Accumulated PHASE-command / ``-padd`` phase offsets (turns),
+        zero where absent."""
+        if "padd" not in self.flags:
+            return np.zeros(len(self))
+        return self._flag_floats("padd", 0.0)
 
     def to_batch(self, device) -> "TOABatch":
         dev = torch.device(device)

@@ -275,14 +275,6 @@ def chain_parting_step(margin, lnp_prop, lnp_before, accepted,
 # pint_tpu_torch/data/b1855_stream_answers.npz, and the tests' streams)
 # --------------------------------------------------------------------------
 
-#: a triage decision (|z| > 7 against the pre-append fit) is a near tie
-#: when its margin | |z| - 7 | is below this: z = (q - mu) / sigma moves
-#: with the residuals, which the port holds to PREFIT_S = 1e-11 s of
-#: JAX's, over the smallest uncertainty of the case (1 us).  Streams are
-#: compared up to the first near tie decided otherwise.
-STREAM_Z_TIE = 1e-5
-
-
 #: JAX's own movement of a streamed night's chi^2, relative, measured by
 #: ``tools/export_torch_stream_case.py`` on the 10k par/tim stream (11
 #: nights of 25 TOAs, GLS and WLS; stored per night in

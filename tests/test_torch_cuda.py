@@ -118,25 +118,36 @@ def test_k3_against_plain_and_deterministic(card):
     assert tl.K3.launches == n0 + 1
 
 
-def test_k4_against_plain_and_deterministic(card):
+@pytest.mark.parametrize("p,m2", [(2, 28), (3, 28), (17, 28), (68, 28),
+                                  (68, 27), (33, 5), (9, 1)])
+def test_k4_against_plain_and_deterministic(card, p, m2):
+    """K4 at the OS's shapes (68 pulsars, m2 = 28), at the fewest
+    pulsars, at counts that fill no 16 x 8 output tile (2, 3, 9, 17, 33)
+    and at odd m2; within 1e-13 of each pair's sum of |terms| of the
+    plain version over pair_indices, bit-identical run to run; the
+    dispatcher launches it once."""
     from pint_tpu_torch import tolerances as tol
     from pint_tpu_torch.gw import os as gos
     from pint_tpu_torch.gw.orf import pair_indices
 
-    rng = np.random.default_rng(1)
-    p, m2 = 68, 28
+    rng = np.random.default_rng(p * 100 + m2)
     z = torch.tensor(rng.standard_normal((p, m2)), device=card)
     M = torch.tensor(rng.standard_normal((p, m2, m2)), device=card)
     ph = torch.tensor(rng.uniform(0.0, 1.0, m2), device=card)
     ii, jj = (torch.tensor(x, device=card) for x in pair_indices(p))
-    n1, d1 = gos.os_pairs_cuda(z, M, ph, ii, jj)
-    n2, d2 = gos.os_pairs_cuda(z, M, ph, ii, jj)
+    n1, d1 = gos.os_pairs_cuda(z, M, ph)
+    n2, d2 = gos.os_pairs_cuda(z, M, ph)
     npl, dpl = gos.os_pairs_plain(z, M, ph, ii, jj)
     na, da = gos.os_pairs_plain(z.abs(), M.abs(), ph, ii, jj)
+    assert n1.shape == d1.shape == ii.shape
     assert torch.equal(n1.view(torch.int64), n2.view(torch.int64))
     assert torch.equal(d1.view(torch.int64), d2.view(torch.int64))
     assert torch.all(torch.abs(n1 - npl) <= tol.KERNEL_SUM_REL * na)
     assert torch.all(torch.abs(d1 - dpl) <= tol.KERNEL_SUM_REL * da)
+    n0 = gos.K4.launches
+    n3, d3 = gos.os_pairs(z, M, ph)
+    assert gos.K4.launches == n0 + 1
+    assert torch.equal(n3, n1) and torch.equal(d3, d1)
 
 
 def test_gw_path_on_card_counts_launches(card):
@@ -168,14 +179,16 @@ def _grams(card, seed, p, nb, m2, n=200):
         g[:, -1, -1], rng.standard_normal(p))))
 
 
-@pytest.mark.parametrize("nb", [63, 100, 29, 13])
+@pytest.mark.parametrize("nb", [63, 100, 29, 13, 1, 7, 9, 15, 17, 65,
+                                144])
 def test_k5_k5b_against_plain_and_deterministic(card, nb):
     """K5/K5b at the case's width (K5: 53 kB of shared memory), at a
-    wider pulsar (120 kB, the dynamic limit raised), at a width that is
-    no multiple of K5's 8-column panel (63 and 100 are none either) and
-    below 3 panels (13: the block inverses get their own area);
-    a zero (padded) weight pins its column and gets no gradient; M_a is
-    exactly symmetric."""
+    wider pulsar (120 kB, the dynamic limit raised), at widths that are
+    no multiple of the 8-column panel or tile (8k +- 1 among them) and
+    below 3 panels (13: the block inverses get their own area), at one
+    column, and at the widest pulsar both narrow forms take at m2 = 28
+    (144); a zero (padded) weight pins its column and gets no gradient;
+    M_a is exactly symmetric."""
     from pint_tpu_torch import linalg as tl
     from pint_tpu_torch import tolerances as tol
 
@@ -233,14 +246,14 @@ def test_k5_failed_pivot_is_nan(card):
         assert torch.all(torch.isnan(y[:, 1]))
 
 
-@pytest.mark.parametrize("nb", [145, 203, 470])
+@pytest.mark.parametrize("nb", [145, 157, 203, 470])
 def test_k5_k5b_wide_against_plain_and_deterministic(card, nb):
     """The wide forms K5w/K5bw, taken where the narrow forms' shared
-    memory does not hold the capacity (145: K5w with the narrow K5b; 203
-    and 470: both wide; 470 is a pulsar of 400 ECORR epochs and 30
-    red-noise modes), against the plain versions, bit-identical run to
-    run, L's upper triangle zero, M exactly symmetric, a zero weight
-    pinned with no gradient."""
+    memory does not hold the capacity (145 and 157: K5w with the narrow
+    K5b, X, gM and gx staged; 203 and 470: both wide; 470 is a
+    pulsar of 400 ECORR epochs and 30 red-noise modes), against the plain
+    versions, bit-identical run to run, L's upper triangle zero, M
+    exactly symmetric, a zero weight pinned with no gradient."""
     from pint_tpu_torch import linalg as tl
     from pint_tpu_torch import tolerances as tol
 
@@ -292,6 +305,56 @@ def test_k5_wide_failed_pivot_is_nan(card):
         assert torch.all(torch.isnan(x[:, 1]))
         assert torch.all(torch.isfinite(x[:, [0, 2]]))
         assert torch.all(torch.isnan(y[:, 1]))
+
+
+def test_k5b_route_matches_the_library(card):
+    """The launcher's route (linalg._k5_shape, on the host) and K5b's
+    own shared-memory size agree: 0 from the library exactly where the
+    host routes to K5bw, and elsewhere at least the host's bytes of L's
+    tiles (more where the library stages X, gM and gx beside them)."""
+    from pint_tpu_torch import linalg as tl
+
+    for nb in (1, 7, 8, 9, 63, 64, 65, 144, 157, 158, 170, 184, 185, 203):
+        for m2 in (0, 1, 5, 28, 60, 400):
+            host = tl.k5_shared_bytes(nb, m2)[1]
+            lib = tl.K5B.call("kron_pulsar_bwd_smem", nb, m2)
+            narrow = tl._k5_shape(nb, m2)[1] == "narrow"
+            assert (lib > 0) == narrow and (not narrow or lib >= host), \
+                (nb, m2, host, lib)
+
+
+@pytest.mark.parametrize("nb,m2", [(161, 28), (184, 28), (20, 300)])
+def test_k5b_unstaged_against_plain_and_deterministic(card, nb, m2):
+    """The narrow K5b where X, gM and gx do not fit beside L's tiles and
+    are read from global memory: past nb = 160 at m2 = 28, up to its
+    limit there (184), and a narrow pulsar with many modes (m2 = 300).
+    Against the plain version, bit-identical run to run, a zero weight
+    pinned with no gradient."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    p, c = 4, 3
+    assert tl._k5_shape(nb, m2)[1] == "narrow"
+    # the library's bytes are the tiles' alone: nothing staged
+    assert tl.K5B.call("kron_pulsar_bwd_smem", nb, m2) \
+        == tl.k5_shared_bytes(nb, m2)[1]
+    pre = _grams(card, nb + m2, p, nb, m2, n=nb + m2 + 100)
+    rng = np.random.default_rng(6)
+    phi_np = 10.0 ** rng.uniform(-16, -12, (c, p, nb))
+    phi_np[:, 0, -3:] = 0.0
+    phi = torch.tensor(phi_np, device=card)
+    a = tl.kron_pulsar_cuda(pre, phi)
+    cots = [torch.tensor(rng.standard_normal(t.shape), device=card)
+            for t in a[:4]]
+    n5b, nbw = tl.K5B.launches, tl.K5BW.launches
+    g1 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    g2 = tl.kron_pulsar_bwd_cuda(phi, a[4], a[5], *cots)
+    assert (tl.K5B.launches, tl.K5BW.launches) == (n5b + 2, nbw)
+    gp = tl.kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
+    assert torch.equal(g1.view(torch.int64), g2.view(torch.int64))
+    assert tol.vector_rel(g1.cpu().numpy(), gp.cpu().numpy()) \
+        <= tol.KRON_PULSAR_REL
+    assert torch.all(g1[:, 0, -3:] == 0)
 
 
 def test_k5_wide_panel_and_width_limit(card):

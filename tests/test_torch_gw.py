@@ -40,6 +40,7 @@ from pint_tpu_torch.convert import load_pta_case, pta_case_from_arrays
 from pint_tpu_torch.fitter import FitDivergedError
 from pint_tpu_torch.gw import common as tgw_common
 from pint_tpu_torch.gw import orf as torf
+from pint_tpu_torch.gw import os as gos
 from pint_tpu_torch.gw.common import (PAD_SIGMA_S, CommonProcess,
                                       build_pulsar_data)
 from pint_tpu_torch.gw.os import OptimalStatistic, os_pairs_plain
@@ -264,6 +265,27 @@ def test_os_pairs_plain_order():
         assert abs(float(den[p] - want)) <= 1e-13 * float(
             torch.einsum("i,ij,j,ji->", ph, M[a].abs(), ph, M[b].abs()))
         assert torch.allclose(num[p], z[a] @ (ph * z[b]), rtol=1e-14)
+
+
+@pytest.mark.parametrize("p", [2, 3, 6, 17])
+def test_os_pairs_take_every_pair_in_pair_indices_order(p):
+    """The dispatcher's pairs are every a < b in the row-major upper
+    triangle, the order of orf.pair_indices (and of K4's closed-form pair
+    index), bit for bit the plain version over those indices."""
+    ii, jj = torf.pair_indices(p)
+    ti, tj = torch.triu_indices(p, p, 1)
+    assert np.array_equal(ti.numpy(), ii) and np.array_equal(tj.numpy(), jj)
+    a, b = np.nonzero(np.triu(np.ones((p, p)), 1))
+    k = a * p - a * (a + 1) // 2 + b - a - 1
+    assert np.array_equal(k, np.arange(len(ii)))
+    assert np.array_equal(ii[k], a) and np.array_equal(jj[k], b)
+    rng = np.random.default_rng(p)
+    z = torch.as_tensor(rng.standard_normal((p, 4)))
+    M = torch.as_tensor(rng.standard_normal((p, 4, 4)))
+    ph = torch.as_tensor(rng.uniform(0.1, 1.0, 4))
+    got = gos.os_pairs(z, M, ph)
+    want = os_pairs_plain(z, M, ph, torch.as_tensor(ii), torch.as_tensor(jj))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 def test_optimal_statistic(jos, tos):

@@ -265,7 +265,8 @@ def test_k5_shared_memory_and_width_limit():
     from pint_tpu_torch.linalg import K5_SHARED_BYTES, _k5_shape, \
         k5_shared_bytes
 
-    assert k5_shared_bytes(63, 28) == (53248, 8 * (63 * 63 + 63 * 28))
+    # K5b at least: 36 tiles of 96 doubles and two 64-vectors
+    assert k5_shared_bytes(63, 28) == (53248, 8 * (36 * 96 + 2 * 64))
     assert k5_shared_bytes(29, 28)[0] == 8 * (32 * 36 + 32 * 36)
     assert k5_shared_bytes(16, 3)[0] == 8 * (16 * 20 + 16 * 20 + 2 * 96)
     assert _k5_shape(100, 28) == ("narrow", "narrow")
@@ -275,6 +276,18 @@ def test_k5_shared_memory_and_width_limit():
     assert _k5_shape(145, 28) == ("wide", "narrow")
     assert _k5_shape(470, 28) == ("wide", "wide")
     assert _k5_shape(4000, 28) == ("wide", "wide")
+
+
+def test_k5b_takes_every_shape_of_its_first_form():
+    """The narrow K5b's tiled layout takes every (nb, m2) whose
+    nb (nb + m2) doubles, its first form's shared memory, fit one block,
+    so no shape moved to K5bw when K5b was redesigned."""
+    from pint_tpu_torch.linalg import K5_SHARED_BYTES, _k5_shape
+
+    for m2 in (0, 1, 2, 5, 14, 28, 40, 60, 100, 400, 3000):
+        for nb in range(1, 200):
+            if 8 * (nb * nb + nb * m2) <= K5_SHARED_BYTES:
+                assert _k5_shape(nb, m2)[1] == "narrow", (nb, m2)
 
 
 # --------------------------------------------------------------------------
