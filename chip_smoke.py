@@ -52,7 +52,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     a production ``run_nuts`` of 16 chains, 16 warmup and 16 sampling
     draws in chunks of 16, 12 leapfrog steps, from the generator seeded
     0 -- launch counts of K1, K3, K5, K5b and K6 during the path (K5,
-    K5b, K6 > 0), warm chain-draws/s, gradients/s and ms per leapfrog
+    K5b > 0, K6 = 13 a draw), warm chain-draws/s, gradients/s and ms per
+    leapfrog
     step, the busy share of one warm draw (a 1-draw chunk), peak device
     memory, accept rate, divergences and the median log10 A against the
     grid peak;
@@ -69,11 +70,11 @@ the closing ``{"ok": true, ...}`` line is not printed:
     to run, times beside the batched cholesky_ex + cholesky_solve +
     matmul and its autograd backward, K5's kernels per call, ptxas
     reports of K5 and K5b (a spill fails the phase), K5's blocks per SM
-    and waves, K5b's shared bytes; K6 (the
-    transition's elementwise stages) against its plain version on the
-    same states and draws:
-    the same accept decisions, positions, momenta and step sizes within
-    4 ulp;
+    and waves, K5b's shared bytes; K6 (the transition's elementwise
+    work, 13 launches a draw) against its plain stages in turn on the
+    same states, draws and gradients over three draws (warmup to
+    warmup, warmup to sampling, sampling), after each: the same accept
+    decisions, every state within 4 ulp, bit-identical run to run; one draw's time on a state updated in place;
 13. ``ingest``: ``get_model_and_toas`` on the committed
     ``pint_tpu_torch/data/b1855_like.par`` and ``b1855_epochs_10k.tim``,
     cold, held to the JAX table of ``b1855_epochs_10k_answers.npz``:
@@ -146,12 +147,16 @@ the closing ``{"ok": true, ...}`` line is not printed:
     otherwise than in JAX (``tolerances.chain_parting_step``; the whole
     chain when there is none): positions bit-identical, every accept
     decision the same, lnp within ``tolerances.mcmc_lnp_limit``, the
-    acceptance fraction; the Kepler depth JAX chose; launches of K1, K2, K7, K8, K9 (K9 = 4
-    per step); cold and warm wall, posterior evaluations per second,
-    busy share, peak memory;
-23. ``k9``: K9 against its plain version at the GLS chain's first
-    half-move (16 x 10) and at 4096 x 64: bit-identical and
-    bit-identical run to run; time of a half-move, plain time, bound;
+    acceptance fraction; the Kepler depth JAX chose; launches of K1, K2,
+    K7, K8, K9 (K9 = 3 per step, one per gap between posterior calls);
+    cold and warm wall, posterior evaluations per second, busy share,
+    peak memory;
+23. ``k9``: a whole step of K9 (three launches) against the plain
+    propose and accept in turn at the GLS chain's first step (32 x 10),
+    at 8192 x 64 and at 32768 x 40, past one wave of co-resident
+    blocks: bit-identical and bit-identical run to run; the time of a
+    step and of its middle launch on buffers updated in place, the plain
+    step's and the bound;
     ``mcmc autocorr``: ``EnsembleSampler.run_mcmc_autocorr`` on a 2-D
     Gaussian from the generator: converged, variance within 15 %;
 24. ``stream gls`` / ``stream wls``: the streaming appends of the
@@ -1114,6 +1119,10 @@ def phase_hmc(pta_arrays, pairs):
     if not all(launches[k] > 0 for k in ("K5", "K5b", "K6")):
         raise AssertionError(f"a kernel of the HMC path never ran: "
                              f"{launches}")
+    n_draws = HMC_RUN["num_warmup"] + HMC_RUN["num_samples"]
+    if launches["K6"] != (n_leap + 1) * n_draws:
+        raise AssertionError(f"hmc: K6 launched {launches['K6']} times, "
+                             f"not {n_leap + 1} a draw")
     # one warm draw more (a 1-draw chunk, 12 leapfrog steps), profiled
     # from where the run ended: a 16-draw chunk's trace (~10^5 kernels)
     # takes the profiler longer to reduce than this script may run
@@ -1342,15 +1351,19 @@ def _ulps(a, b):
     return float(torch.max(d))
 
 
-def phase_k6():
-    """K6 against its plain version on the card: the same states and
-    draws, two draws (one adapting), 16 chains x 138 coordinates."""
+#: K6's shape on the HMC run's path: chains, coordinates, leapfrog steps
+K6_SHAPE = (HMC_RUN["n_chains"], 138, HMC_RUN["num_leapfrog"])
+
+
+def _k6_inputs(draws=3):
+    """(new_state, draws, grads) of K6's checks at ``K6_SHAPE``:
+    ``new_state()`` a fresh NutsState on the card, each draw's (z,
+    n_steps, u) and its n_leap gradients (lnp_n, gn), from one seed."""
     import torch
 
-    from pint_tpu_torch import tolerances as tol
     from pint_tpu_torch.gw import hmc
 
-    c, n_leap, nd = HMC_RUN["n_chains"], HMC_RUN["num_leapfrog"], 138
+    c, nd, n_leap = K6_SHAPE
     dev = torch.device("cuda")
     rng = np.random.default_rng(6)
 
@@ -1360,80 +1373,125 @@ def phase_k6():
     x0 = t(rng.standard_normal((c, nd)))
     g0 = t(rng.standard_normal((c, nd)) * 30)
     lnp0 = t(4.1e5 + rng.standard_normal(c))
-    draws = [(t(rng.standard_normal((c, nd))),
-              torch.as_tensor(rng.integers(1, n_leap + 1, c), device=dev),
-              t(rng.uniform(0, 1, c))) for _ in range(2)]
+    zs = [(t(rng.standard_normal((c, nd))),
+           torch.as_tensor(rng.integers(1, n_leap + 1, c), device=dev),
+           t(rng.uniform(0, 1, c))) for _ in range(draws)]
     grads = [[(t(4.1e5 + 3 * rng.standard_normal(c)),
                t(rng.standard_normal((c, nd)) * 30)) for _ in range(n_leap)]
-             for _ in range(2)]
+             for _ in range(draws)]
 
     def new_state():
         return hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), inv_mass,
                              0.05)
+    return new_state, zs, grads
 
-    def draw(st, d, stages):
-        pre, post, end = stages
+
+def _k6_timed_state():
+    """The state a timed K6 draw runs on, updated in place: draw 1's
+    random numbers and its first gradient, fixed."""
+    new_state, draws, grads = _k6_inputs()
+    st = new_state()
+    st.z.copy_(draws[1][0])
+    st.n_steps.copy_(draws[1][1])
+    st.u.copy_(draws[1][2])
+    st.lnp_n.copy_(grads[1][0][0])
+    st.gn.copy_(grads[1][0][1])
+    return st
+
+
+def phase_k6():
+    """K6 against its plain version on the card: the same states, draws
+    and gradients, three draws ((adapting, adapting_next) = (T, T),
+    (T, F), (F, F)), 16 chains x 138 coordinates, held after every draw;
+    then one draw's 13 launches timed on a state updated in place."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.gw import hmc
+
+    c, nd, n_leap = K6_SHAPE
+    new_state, draws, grads = _k6_inputs()
+
+    def kernel_draw(st, d, adapting, adapting_next, it, grad=True):
+        # the draw as run_nuts runs it: n_leap + 1 launches
+        hmc.nuts_draw_start(st)
+        for i in range(n_leap):
+            if grad:
+                st.lnp_n.copy_(grads[d][i][0])
+                st.gn.copy_(grads[d][i][1])
+            if i + 1 < n_leap:
+                hmc.nuts_leap_next(st, i)
+        hmc.nuts_draw_finish(st, n_leap - 1, adapting, adapting_next, 0.8,
+                             it)
+
+    def plain_draw(st, d, adapting, adapting_next, it, grad=True):
+        for i in range(n_leap):
+            hmc.nuts_leap_pre_plain(st, i)
+            if grad:
+                st.lnp_n.copy_(grads[d][i][0])
+                st.gn.copy_(grads[d][i][1])
+            hmc.nuts_leap_post_plain(st, i)
+        hmc.nuts_draw_end_plain(st, adapting, adapting_next, 0.8, it)
+
+    def set_draw(st, d):
         st.z.copy_(draws[d][0])
         st.n_steps.copy_(draws[d][1])
         st.u.copy_(draws[d][2])
-        for i in range(n_leap):
-            pre(st, i)
-            st.lnp_n.copy_(grads[d][i][0])
-            st.gn.copy_(grads[d][i][1])
-            post(st, i)
-        end(st, d == 0, False, 0.8, d)
-    kern = (hmc.nuts_leap_pre, hmc.nuts_leap_post, hmc.nuts_draw_end)
-    plain = (hmc.nuts_leap_pre_plain, hmc.nuts_leap_post_plain,
-             hmc.nuts_draw_end_plain)
-    sk, sp = new_state(), new_state()
+    sk, sk2, sp = new_state(), new_state(), new_state()
     worst = {}
-    same_acc = True
-    for d in range(2):
-        draw(sk, d, kern)
-        draw(sp, d, plain)
+    same_acc = rerun = True
+    hmc.K6.launches = 0
+    for d in range(3):
+        for st, fn in ((sk, kernel_draw), (sk2, kernel_draw),
+                       (sp, plain_draw)):
+            set_draw(st, d)
+            fn(st, d, d < 2, d + 1 < 2, d)
         torch.cuda.synchronize()
         same_acc &= bool(torch.equal(sk.accepted, sp.accepted))
-        for name in ("x", "g", "lnp", "p1", "x1", "eps", "eps_used",
-                     "log_eps", "log_eps_bar", "hbar", "acc"):
+        rerun &= all(
+            torch.equal(a.view(torch.int64), b.view(torch.int64))
+            if a.dtype == torch.float64 else torch.equal(a, b)
+            for a, b in zip(sk.tensors(), sk2.tensors()))
+        for name in ("x", "g", "lnp", "p1", "x1", "g1", "lnp1", "xn", "ph",
+                     "eps", "eps_used", "log_eps", "log_eps_bar", "hbar",
+                     "acc"):
             worst[name] = max(worst.get(name, 0.0),
                               _ulps(getattr(sk, name), getattr(sp, name)))
+    launches = hmc.K6.launches
     n_acc = int(sk.accepted.sum())
-    log(f"k6: {c} chains x {nd} coordinates, 2 draws: accept decisions "
-        f"identical {same_acc} ({n_acc}/{c} accepted in the last); max "
-        f"ulps kernel vs plain " + json.dumps(worst)
-        + f" (limit {tol.K6_ULPS})")
-    if not (same_acc and all(v <= tol.K6_ULPS for v in worst.values())):
+    log(f"k6: {c} chains x {nd} coordinates, 3 draws (warmup to warmup, "
+        f"warmup to sampling, sampling): accept decisions identical "
+        f"{same_acc} ({n_acc}/{c} accepted in the last), bit-identical "
+        f"run to run {rerun}, launches {launches} ({n_leap + 1} a draw); "
+        f"max ulps kernel vs plain " + json.dumps(worst) + f" (limit {tol.K6_ULPS})")
+    if not (same_acc and rerun and launches == 6 * (n_leap + 1)
+            and all(v <= tol.K6_ULPS for v in worst.values())):
         raise AssertionError("K6 disagrees with its plain version")
-    # one draw's elementwise work with fixed gradients, non-adapting
-    st_k, st_p = new_state(), new_state()
-
-    def run(st, stages):
-        def fn():
-            pre, post, end = stages
-            for i in range(n_leap):
-                pre(st, i)
-                post(st, i)
-            end(st, False, False, 0.8, 5)
-        return fn
-    for st in (st_k, st_p):
-        st.z.copy_(draws[1][0])
-        st.n_steps.copy_(draws[1][1])
-        st.u.copy_(draws[1][2])
-        st.gn.copy_(grads[1][0][1])
-        st.lnp_n.copy_(grads[1][0][0])
+    # one draw's elementwise work on a state updated in place (the
+    # gradient inputs fixed), non-adapting
+    st_k, st_p = _k6_timed_state(), _k6_timed_state()
     per = c * nd
+    # the draw's bytes: z, x, g (read), 12 gradients and lnp_n, xn and ph
+    # written 12 times, x1, p1, g1 (written, read at the end), x, g
+    # (accepted copies), the per-chain scalars
     nbytes = 8 * (per * (3 + 2 * n_leap + 2) + c * (n_leap + 14) + nd)
     nflops = per * (8 * n_leap + 10)
     b, by = bound_ms(nbytes, nflops)
-    # 25 launches a call: 10 calls keep the queue under ~10^3 launches
-    ms, how = kernel_ms(run(st_k, kern), reps=10)
-    plain_ms, _ = kernel_ms(run(st_p, plain), reps=10)
+    one = partial(kernel_draw, st_k, 1, False, False, 5, False)
+    # 13 launches a call: 50 calls keep the queue under ~10^3 launches
+    ms, how = kernel_ms(one)
+    plain_ms, _ = kernel_ms(partial(plain_draw, st_p, 1, False, False, 5,
+                                    False), reps=10)
     out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
            "bound_ms": b, "bound_by": by, "timed_by": how,
            "max_abs_err": float(torch.max(torch.abs(sk.x - sp.x))),
-           "launches_per_draw": 2 * n_leap + 1,
-           "per_call_with_enqueue_ms": cuda_ms(run(st_k, kern), reps=20)}
-    log("k6 one draw (2 x 12 + 1 launches): " + json.dumps(out))
+           "launches_per_draw": n_leap + 1,
+           "per_call_with_enqueue_ms": cuda_ms(one, reps=20),
+           "stages_us": stage_us(one)}
+    out.update(build_report(hmc.K6, ("nuts_pre0_kernel",
+                                     "nuts_post_pre_kernel",
+                                     "nuts_post_end_kernel")))
+    log(f"k6 one draw ({n_leap + 1} launches): " + json.dumps(out))
     return out
 
 
@@ -2257,7 +2315,7 @@ def phase_mcmc(kind, model, toas, ref):
     the whole chain when there is none): positions bit-identical, every
     decision the same, lnp within ``tolerances.mcmc_lnp_limit``; over
     the whole chain, the acceptance fraction.  Launches of K1, K2, K7,
-    K8, K9 during the chain (K9 = 4 per step); cold and warm wall,
+    K8, K9 during the chain (K9 = 3 per step); cold and warm wall,
     posterior evaluations per second (walkers x steps / wall,
     bench_mcmc's unit), busy share and device time by group of a warm
     20-step chain, peak memory."""
@@ -2378,7 +2436,7 @@ def phase_mcmc(kind, model, toas, ref):
     need = ("K1", "K8", "K9") if kind == "gls" else ("K1", "K9")
     if not (pos_ok and dec_ok and lnp_ok and spread_ok):
         raise AssertionError(f"mcmc {kind} disagrees with JAX")
-    if launches["K9"] != 4 * nsteps or not all(launches[k] > 0
+    if launches["K9"] != 3 * nsteps or not all(launches[k] > 0
                                                for k in need):
         raise AssertionError(f"mcmc {kind}: launches {launches}")
     if upto < nsteps:
@@ -2422,27 +2480,35 @@ def phase_mcmc_autocorr():
 
 
 def _k9_case(mc):
-    """The first half-move of a chain's own inputs: (active, other, u,
-    idx, lnp, lnp_prop, u_acc) on the card."""
+    """The first step of a chain's own inputs: the ensemble x0 (32 x 10),
+    its lnp, the proposals' lnp of both halves (the second half's
+    proposed against the first after its accept) and step 0's draws, on
+    the card."""
     import torch
 
-    from pint_tpu_torch.sampler import stretch_propose_plain
+    from pint_tpu_torch import sampler as ts
 
-    x0 = torch.tensor(mc["x0"], device="cuda")
-    h = x0.shape[0] // 2
-    u, idx, u_acc = (torch.as_tensor(d[0, 0], device="cuda")
-                     for d in mc["draws"])
+    x = torch.tensor(mc["x0"], device="cuda")
+    nw, nd = x.shape
+    h = nw // 2
+    draws = [tuple(torch.as_tensor(d[0, k], device="cuda").contiguous()
+                   for d in mc["draws"]) for k in (0, 1)]
+    draws = [(u, idx.to(torch.int64), u_acc) for u, idx, u_acc in draws]
     lnpost_v = torch.func.vmap(mc["bt"].lnposterior)
     with torch.no_grad():
-        lnp = lnpost_v(x0[:h]).contiguous()
-        prop, _ = stretch_propose_plain(x0[:h], x0[h:], u, idx, 2.0)
-        lnp_prop = lnpost_v(prop).contiguous()
-    return (x0[:h].contiguous(), x0[h:].contiguous(), u.contiguous(),
-            idx.to(torch.int64).contiguous(), lnp, lnp_prop,
-            u_acc.contiguous())
+        lnp = lnpost_v(x).contiguous()
+        x0, lnp0 = x.clone(), lnp.clone()
+        buf = ts.StretchBuffers.around(x, lnp)
+        for gap, s in ((0, slice(0, h)), (1, slice(h, nw))):
+            ts.stretch_move_plain(buf, gap, draws, 2.0)
+            buf.lnp_prop[s] = lnpost_v(buf.prop[s])
+    return x0, lnp0, buf.lnp_prop, draws
 
 
 def _k9_synthetic(h, nd, seed=9):
+    """A step's inputs at (2h, nd): walkers at scales from 1e-12 to 1e3,
+    lnp near 1.2e5 with a NaN and a -inf proposal lnp, the draws of both
+    halves."""
     import torch
 
     rng = np.random.default_rng(seed)
@@ -2451,34 +2517,54 @@ def _k9_synthetic(h, nd, seed=9):
 
     def t(a, dtype=torch.float64):
         return torch.tensor(np.asarray(a), dtype=dtype, device="cuda")
-    lnp = rng.normal(1.2e5, 3.0, h)
-    lnp_prop = lnp + rng.normal(0.0, 3.0, h)
+    lnp = rng.normal(1.2e5, 3.0, 2 * h)
+    lnp_prop = lnp + rng.normal(0.0, 3.0, 2 * h)
     lnp_prop[:2] = (np.nan, -np.inf)
-    return (t(center + scale * rng.standard_normal((h, nd))),
-            t(center + scale * rng.standard_normal((h, nd))),
-            t(rng.uniform(size=h)), t(rng.integers(0, h, h), torch.int64),
-            t(lnp), t(lnp_prop), t(rng.uniform(size=h)))
+    draws = [(t(rng.uniform(size=h)), t(rng.integers(0, h, h), torch.int64),
+              t(rng.uniform(size=h))) for _ in range(2)]
+    return (t(center + scale * rng.standard_normal((2 * h, nd))), t(lnp),
+            t(lnp_prop), draws)
+
+
+class _K9Step:
+    """A red-black step's buffers on the card and its three K9 launches
+    (or K9's plain version), run in place: repeated steps leave a valid
+    state, so a timed call holds launches alone."""
+
+    def __init__(self, inputs, a=2.0):
+        from pint_tpu_torch.sampler import StretchBuffers
+
+        x, lnp, lnp_prop, self.draws = inputs
+        self.buf = StretchBuffers.around(x.clone(), lnp.clone())
+        self.buf.lnp_prop.copy_(lnp_prop)
+        self.a = a
+
+    def step(self, plain=False):
+        from pint_tpu_torch import sampler as ts
+
+        move = ts.stretch_move_plain if plain else ts.stretch_move
+        for gap in (0, 1, 2):
+            move(self.buf, gap, self.draws, self.a)
+
+    def gap(self):
+        """The middle launch alone: accept half 0, propose half 1."""
+        from pint_tpu_torch.sampler import stretch_move
+
+        stretch_move(self.buf, 1, self.draws, self.a)
 
 
 def phase_k9(mc):
-    """K9 (both stages of one half-move) against its plain version at
-    the GLS chain's own first half-move (16 x 10) and at 4096 walkers x
-    64: proposals, z, walkers, lnp, flags and count bit-identical (a NaN
-    equal to a NaN) and bit-identical run to run; the time of one
-    half-move (2 launches) beside the plain version's and the bytes
-    bound; no PyTorch call computes the move."""
+    """K9 (a whole step: three launches) against the plain propose and
+    accept in turn, at the GLS chain's own first step (32 x 10), at 8192
+    walkers x 64 (h = 4096) and at a shape past one wave of co-resident
+    blocks: walkers, lnp, proposals, z, flags and counts bit-identical
+    (a NaN equal to a NaN) and bit-identical run to run.  Times, on
+    buffers updated in place (no copy in the timed call): a step (three
+    launches), its middle launch alone, the plain step, the step's bound;
+    no PyTorch call computes the move."""
     import torch
 
     from pint_tpu_torch import sampler as ts
-
-    def half_move(propose, accept, args, a=2.0):
-        act, oth, u, idx, lnp, lnp_prop, u_acc = args
-        x, lp = act.clone(), lnp.clone()
-        flags = torch.empty(act.shape[0], dtype=torch.uint8, device="cuda")
-        count = torch.empty(1, dtype=torch.int64, device="cuda")
-        prop, z = propose(x, oth, u, idx, a)
-        accept(x, lp, prop, z, lnp_prop, u_acc, flags, count)
-        return prop, z, x, lp, flags, count
 
     def same(p, q):
         return all(torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
@@ -2486,45 +2572,59 @@ def phase_k9(mc):
             torch.nan_to_num(b.double()).view(torch.int64))
             for a, b in zip(p, q))
 
-    cuda = (ts.stretch_propose_cuda, ts.stretch_accept_cuda)
-    plain = (ts.stretch_propose_plain, ts.stretch_accept_plain)
-    out = {}
-    for label, args in (("path", _k9_case(mc)),
-                        ("h4096_d64", _k9_synthetic(4096, 64))):
-        a, b = half_move(*cuda, args), half_move(*cuda, args)
-        p = half_move(*plain, args)
+    wave = ts.K9.call("stretch_move_max_blocks")
+    out = {"co_resident_blocks": wave}
+    for label, inputs in (("path", _k9_case(mc)),
+                          ("h4096_d64", _k9_synthetic(4096, 64)),
+                          ("h16384_d40", _k9_synthetic(16384, 40))):
+        steps = [_K9Step(inputs) for _ in range(3)]
+        ts.K9.launches = 0
+        steps[0].step()
+        steps[1].step()
+        launches = ts.K9.launches
+        steps[2].step(plain=True)
         torch.cuda.synchronize()
+        a, b, p = (st.buf for st in steps)
         ok_plain, ok_rerun = same(a, p), same(a, b)
-        h, nd = args[0].shape
+        nd = a.x.shape[1]
+        h = a.x.shape[0] // 2
+        blocks = ts.K9.call("stretch_move_blocks", h, nd)
         max_abs = max(float(torch.max(torch.abs(torch.nan_to_num(x.double())
                                                 - torch.nan_to_num(
                                                     y.double()))))
                       for x, y in zip(a, p))
-        row = {"shape": [h, nd], "bit_identical_to_plain": ok_plain,
+        n_acc = a.counts.tolist()
+        row = {"shape": [2 * h, nd], "bit_identical_to_plain": ok_plain,
                "run_to_run": ok_rerun, "max_abs_err": max_abs,
-               "accepted": int(a[5])}
-        if not (ok_plain and ok_rerun):
+               "accepted": n_acc, "launches_per_step": launches // 2,
+               "blocks": blocks, "past_one_wave": h * nd > 256 * wave}
+        if not (ok_plain and ok_rerun and launches == 6):
             log(f"k9 {label}: " + json.dumps(row))
             raise AssertionError(f"K9 disagrees with its plain version at "
                                  f"{label}")
-        row["ms"], row["timed_by"] = kernel_ms(
-            partial(half_move, *cuda, args))
-        row["plain_ms"], _ = kernel_ms(partial(half_move, *plain, args))
-        # a half-move's bytes: active, the gathered partners, the
-        # proposals out and back, the walkers written; u, idx, z, lnp
-        # (read, written), lnp_prop, u_acc; the flags
+        if label == "h16384_d40" and not row["past_one_wave"]:
+            raise AssertionError(f"k9: {2 * h} x {nd} is not past one wave "
+                                 f"of {wave} blocks")
+        timed = _K9Step(inputs)
+        row["ms"], row["timed_by"] = kernel_ms(timed.step)
+        row["gap_ms"], _ = kernel_ms(timed.gap)
+        row["plain_ms"], _ = kernel_ms(partial(_K9Step(inputs).step,
+                                               plain=True))
+        # the step as a function: the walkers, lnp, the proposals' lnp
+        # and the draws read once; the proposals and z written, and the
+        # accepted walkers and their lnp; the flags and the counts
+        acc_rows = sum(n_acc)
         row["bound_ms"], row["bound_by"] = bound_ms(
-            8 * (4 * h * nd + 8 * h) + h, 8 * h * nd + 60 * h)
+            8 * (2 * h * nd + 10 * h + 2 * h * nd + 2 * h
+                 + acc_rows * (nd + 1)) + 2 * h + 16,
+            2 * (8 * h * nd + 60 * h))
         row["library_ms"] = None
-        row["per_call_with_enqueue_ms"] = cuda_ms(
-            partial(half_move, *cuda, args), reps=50)
+        row["per_call_with_enqueue_ms"] = cuda_ms(timed.step, reps=50)
         out[label] = row
         log(f"k9 {label}: " + json.dumps(row))
-    out.update(build_report(ts.K9, ("stretch_propose_kernel",
-                                    "stretch_decide_kernel",
-                                    "stretch_select_kernel")))
+    out.update(build_report(ts.K9, ("stretch_move_kernel",)))
     log("k9 ptxas: " + json.dumps({k: v for k, v in out.items()
-                                   if k not in ("path", "h4096_d64")}))
+                                   if k == "ptxas"}))
     return out
 
 

@@ -15,11 +15,11 @@ static-trajectory form: jittered-length leapfrog trajectories that run
 all ``num_leapfrog`` steps under a per-chain ``active`` mask, endpoint
 Metropolis acceptance, dual-averaging step size during warmup, a
 diagonal metric from the per-parameter scales.  The elementwise work of
-a transition is kernel K6 (``csrc/nuts_step.cu``): two launches per
-leapfrog step, one per draw.  The run is cut into fixed-count chunks of
-:func:`pint_tpu_torch.iterate.iterate_fixed`; nothing inside a chunk
-reads the device, and its records are copied to the host once per
-chunk.  State buffers are updated in place.
+a transition is kernel K6 (``csrc/nuts_step.cu``): one launch per gap
+between gradient calls, ``num_leapfrog + 1`` a draw.  The run is cut
+into fixed-count chunks of :func:`pint_tpu_torch.iterate.iterate_fixed`;
+nothing inside a chunk reads the device, and its records are copied to
+the host once per chunk.  State buffers are updated in place.
 
 Random numbers come from a ``torch.Generator`` on the posterior's
 device, per draw in this order: the standard-normal momenta (C, ndim),
@@ -87,7 +87,7 @@ SAMPLEABLE = ("TNREDAMP", "TNREDGAM")
 #: gw/hmc.py:357 _chunk_body, :365-421)
 K6 = CudaKernel(
     "nuts_step", "nuts_step.cu", "nuts_step_launch",
-    [ctypes.c_int] + [ctypes.c_void_p] * 24 + [ctypes.c_int64] * 3
+    [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int64] * 3
     + [ctypes.c_int] * 2 + [ctypes.c_double] * 6)
 
 
@@ -299,6 +299,11 @@ class NutsState:
     _F64 = ("x", "g", "lnp", "x1", "p1", "g1", "lnp1", "xn", "ph", "gn",
             "lnp_n", "z", "u", "inv_mass", "eps", "log_eps", "hbar",
             "log_eps_bar", "mu", "acc", "eps_used")
+    #: the tensors K6 reads and writes, in its pointer order
+    _K6 = ("x", "g", "lnp", "x1", "p1", "g1", "lnp1", "xn", "ph", "gn",
+           "lnp_n", "z", "n_steps", "u", "inv_mass", "eps", "log_eps",
+           "hbar", "log_eps_bar", "mu", "acc", "divergent", "accepted",
+           "eps_used")
 
     def __init__(self, x, g, lnp, inv_mass, step_size0):
         c, nd = x.shape
@@ -320,6 +325,13 @@ class NutsState:
         self.divergent = torch.zeros(c, dtype=torch.bool, device=dev)
         self.accepted = torch.zeros(c, dtype=torch.bool, device=dev)
         self.it = 0
+        self._k6_ptrs = None  # K6's packed pointers, from its first launch
+
+    def __setattr__(self, name, value):
+        # a rebound tensor moves K6's pointers: repack at the next launch
+        if name in self._K6:
+            object.__setattr__(self, "_k6_ptrs", None)
+        object.__setattr__(self, name, value)
 
     @property
     def n_chains(self):
@@ -346,30 +358,32 @@ def _da_scalars(it):
 
 def _k6_launch(st: NutsState, stage, step=0, adapting=False,
                adapting_next=False, target=0.0, it=0):
-    ts = st.tensors()
-    dev = st.x.device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError("nuts_step_cuda: the state must be on one CUDA "
-                         "device")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("nuts_step_cuda: the state must be contiguous")
-    if any(t.dtype != torch.float64 for t in ts[:-3]) \
-            or st.n_steps.dtype != torch.int64:
-        raise ValueError("nuts_step_cuda: float64 state, int64 n_steps")
+    """One K6 launch on the state's card.  The state is checked and its
+    24 pointers packed at its first launch, and again only after one of
+    its tensors is rebound (``NutsState.__setattr__``): the updates are
+    in place, so the pointers do not move."""
+    if st._k6_ptrs is None:
+        ts = st.tensors()
+        dev = st.x.device
+        if dev.type != "cuda" or any(t.device != dev for t in ts):
+            raise ValueError("nuts_step_cuda: the state must be on one CUDA "
+                             "device")
+        if not all(t.is_contiguous() for t in ts):
+            raise ValueError("nuts_step_cuda: the state must be contiguous")
+        if any(t.dtype != torch.float64 for t in ts[:-3]) \
+                or st.n_steps.dtype != torch.int64:
+            raise ValueError("nuts_step_cuda: float64 state, int64 n_steps")
+        st._k6_ptrs = (ctypes.c_void_p * 24)(*(
+            getattr(st, n).data_ptr() for n in NutsState._K6))
     c1, tt0, sq, eta, ometa = _da_scalars(it)
-    p = [t.data_ptr() for t in (
-        st.x, st.g, st.lnp, st.x1, st.p1, st.g1, st.lnp1, st.xn, st.ph,
-        st.gn, st.lnp_n, st.z, st.n_steps, st.u, st.inv_mass, st.eps,
-        st.log_eps, st.hbar, st.log_eps_bar, st.mu, st.acc, st.divergent,
-        st.accepted, st.eps_used)]
-    K6.launch(dev, int(stage), *p, st.n_chains, st.ndim, int(step),
-              int(bool(adapting)), int(bool(adapting_next)), float(target),
-              c1, tt0, sq, eta, ometa)
+    K6.launch(st.x.device, int(stage), st._k6_ptrs, st.n_chains, st.ndim,
+              int(step), int(bool(adapting)), int(bool(adapting_next)),
+              float(target), c1, tt0, sq, eta, ometa)
 
 
 def nuts_leap_pre_plain(st: NutsState, step):
-    """Stage 0 of K6 in torch ops: the half-kick and drift before
-    gradient ``step``."""
+    """pre(step) in torch ops: the half-kick and drift before gradient
+    ``step``."""
     e = st.eps[:, None]
     if step == 0:
         x, g, p = st.x, st.g, st.z / torch.sqrt(st.inv_mass)
@@ -381,7 +395,7 @@ def nuts_leap_pre_plain(st: NutsState, step):
 
 
 def nuts_leap_post_plain(st: NutsState, step):
-    """Stage 1 of K6 in torch ops: the closing half-kick and the masked
+    """post(step) in torch ops: the closing half-kick and the masked
     select after gradient ``step``."""
     active = step < st.n_steps
     a2 = active[:, None]
@@ -403,7 +417,7 @@ def _kinetic(p, inv_mass):
 
 def nuts_draw_end_plain(st: NutsState, adapting, adapting_next, target,
                         it):
-    """Stage 2 of K6 in torch ops: energies, acceptance, divergence, the
+    """The draw's end in torch ops: energies, acceptance, divergence, the
     accept select, dual averaging and the next draw's step size."""
     c1, tt0, sq, eta, ometa = _da_scalars(it)
     p0 = st.z / torch.sqrt(st.inv_mass)
@@ -434,28 +448,45 @@ def nuts_draw_end_plain(st: NutsState, adapting, adapting_next, target,
     st.eps.copy_(torch.exp(st.log_eps if adapting_next else st.log_eps_bar))
 
 
-def nuts_leap_pre(st: NutsState, step):
-    """Stage 0: K6 on CUDA, the plain version on the CPU."""
+def _k6_or_plain(st: NutsState, name):
     if st.x.device.type == "cuda":
-        _k6_launch(st, 0, step=step)
+        return True
+    if st.x.device.type != "cpu":
+        raise ValueError(f"{name}: no version for {st.x.device}")
+    return False
+
+
+def nuts_draw_start(st: NutsState):
+    """Before gradient 0: pre(0).  K6 on CUDA, the plain version on the
+    CPU."""
+    if _k6_or_plain(st, "nuts_draw_start"):
+        _k6_launch(st, 0)
     else:
-        nuts_leap_pre_plain(st, step)
+        nuts_leap_pre_plain(st, 0)
 
 
-def nuts_leap_post(st: NutsState, step):
-    """Stage 1: K6 on CUDA, the plain version on the CPU."""
-    if st.x.device.type == "cuda":
+def nuts_leap_next(st: NutsState, step):
+    """Between gradients ``step`` and ``step + 1``: post(step), then
+    pre(step + 1).  One K6 launch on CUDA, the plain stages in turn on
+    the CPU."""
+    if _k6_or_plain(st, "nuts_leap_next"):
         _k6_launch(st, 1, step=step)
     else:
         nuts_leap_post_plain(st, step)
+        nuts_leap_pre_plain(st, step + 1)
 
 
-def nuts_draw_end(st: NutsState, adapting, adapting_next, target, it):
-    """Stage 2: K6 on CUDA, the plain version on the CPU."""
-    if st.x.device.type == "cuda":
-        _k6_launch(st, 2, adapting=adapting, adapting_next=adapting_next,
-                   target=target, it=it)
+def nuts_draw_finish(st: NutsState, step, adapting, adapting_next, target,
+                     it):
+    """After the last gradient ``step``: post(step), then the draw's end
+    (draw ``it``; dual averaging while ``adapting``, the next draw's step
+    size as ``adapting_next``).  One K6 launch on CUDA, the plain stages
+    in turn on the CPU."""
+    if _k6_or_plain(st, "nuts_draw_finish"):
+        _k6_launch(st, 2, step=step, adapting=adapting,
+                   adapting_next=adapting_next, target=target, it=it)
     else:
+        nuts_leap_post_plain(st, step)
         nuts_draw_end_plain(st, adapting, adapting_next, target, it)
 
 
@@ -535,13 +566,15 @@ def run_nuts(posterior: GWBPosterior, *, num_warmup=300, num_samples=500,
                                            generator=generator, device=dev))
             st.u.copy_(torch.rand(n_chains, generator=generator,
                                   dtype=torch.float64, device=dev))
+        # n_leap + 1 K6 launches a draw, one per gap between gradients
+        nuts_draw_start(st)
         for i in range(n_leap):
-            nuts_leap_pre(st, i)
             lnp_n, gn = posterior.value_and_grad(st.xn)
             st.lnp_n.copy_(lnp_n)
             st.gn.copy_(gn)
-            nuts_leap_post(st, i)
-        nuts_draw_end(st, d < nw, d + 1 < nw, target, d)
+            if i + 1 < n_leap:
+                nuts_leap_next(st, i)
+        nuts_draw_finish(st, n_leap - 1, d < nw, d + 1 < nw, target, d)
         st.it = d + 1
         return st
 

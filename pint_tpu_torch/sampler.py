@@ -3,15 +3,20 @@
 The affine-invariant stretch move (Goodman & Weare 2010, the algorithm
 emcee implements) with the red-black split: each step moves the first
 half of the walkers against the second, then the second half against
-the updated first.  A half-move is kernel K9 (``csrc/stretch_move.cu``)
-around one batched posterior call:
+the updated first.  A half-move is one batched posterior call between
+two parts of kernel K9 (``csrc/stretch_move.cu``):
 
-1. propose (K9 stage 0): z = ((a - 1) u + 1)^2 / a and proposal =
-   other[idx] + z (active - other[idx]) for every walker of the half;
+1. propose: z = ((a - 1) u + 1)^2 / a and proposal = other[idx] + z
+   (active - other[idx]) for every walker of the half;
 2. lnp_prop = ``torch.func.vmap(lnpost)`` of the proposals;
-3. accept (K9 stage 1): lnratio = (ndim - 1) log z + lnp_prop - lnp,
-   accept = log u_acc < lnratio (a NaN rejects), the walker and its lnp
-   replaced in place, the accept flags and the half's count written.
+3. accept: lnratio = (ndim - 1) log z + lnp_prop - lnp, accept = log
+   u_acc < lnratio (a NaN rejects), the walker and its lnp replaced in
+   place, the accept flags and the half's count written.
+
+K9 is one launch per gap between posterior calls
+(:func:`stretch_move` on the ensemble's :class:`StretchBuffers`), three
+a step: propose half 0; accept half 0 and propose half 1 against it;
+accept half 1.
 
 The arithmetic is the reference's as XLA compiles it on the CPU: the
 multiply-adds contracted to fused multiply-adds, (a - 1) u + 1,
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -53,7 +59,7 @@ __all__ = ["run_mcmc", "EnsembleSampler", "integrated_autocorr_time",
 #: _stretch_half, scanned by :224 run_mcmc)
 K9 = CudaKernel(
     "stretch_move", "stretch_move.cu", "stretch_move_launch",
-    [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int64] * 2
+    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 2
     + [ctypes.c_double] * 2)
 
 
@@ -269,7 +275,7 @@ def fma_exact(a, b, c):
 
 
 def stretch_propose_plain(active, other, u, idx, a):
-    """Stage 0 of K9 in torch ops: (proposal (h, ndim), z (h,)) from the
+    """The propose of K9 in torch ops: (proposal (h, ndim), z (h,)) from the
     uniforms ``u`` and partner indices ``idx`` (pint_tpu
     sampler.py:211-216)."""
     one = torch.ones_like(u)
@@ -281,7 +287,7 @@ def stretch_propose_plain(active, other, u, idx, a):
 
 def stretch_accept_plain(active, lnp, proposal, z, lnp_prop, u_acc,
                          accepted, count):
-    """Stage 1 of K9 in torch ops (pint_tpu sampler.py:217-220): the
+    """The accept of K9 in torch ops (pint_tpu sampler.py:217-220): the
     decisions into ``accepted`` (h,) uint8 and their number into
     ``count`` (1,) int64; ``active`` and ``lnp`` take the accepted
     proposals in place."""
@@ -295,77 +301,134 @@ def stretch_accept_plain(active, lnp, proposal, z, lnp_prop, u_acc,
     lnp.copy_(torch.where(acc, lnp_prop, lnp))
 
 
-def _k9_check(name, tensors):
-    dev = tensors[0].device
+class StretchBuffers(NamedTuple):
+    """The red-black ensemble of 2h walkers as K9 updates it in place:
+    the walkers ``x`` (2h, ndim) and their ``lnp`` (2h,), the proposals
+    ``prop`` (2h, ndim) and their stretch factors ``z`` (2h,), the
+    proposals' lnp ``lnp_prop`` (2h,) (the posterior calls between the
+    gaps write it), each walker's decision ``accepted`` (2h,) uint8 and
+    each half's number of them ``counts`` (2,) int64.  Half 0 is the
+    first h walkers."""
+    x: torch.Tensor
+    lnp: torch.Tensor
+    prop: torch.Tensor
+    z: torch.Tensor
+    lnp_prop: torch.Tensor
+    accepted: torch.Tensor
+    counts: torch.Tensor
+
+    @classmethod
+    def around(cls, x, lnp):
+        """Buffers around the walkers ``x`` and their ``lnp`` (taken as
+        they are, updated in place); the rest allocated on their
+        device."""
+        nw = x.shape[0]
+        return cls(x, lnp, torch.empty_like(x), torch.empty_like(lnp),
+                   torch.empty_like(lnp),
+                   torch.empty(nw, dtype=torch.uint8, device=x.device),
+                   torch.empty(2, dtype=torch.int64, device=x.device))
+
+
+def _stretch_views(buf, gap, draws):
+    """(accept, propose) of one gap as views of ``buf``: accept is None
+    or (active, lnp, proposal, z, lnp_prop, u_acc, accepted, count) of
+    the half that accepts, the arguments of :func:`stretch_accept_plain`;
+    propose is None or (active, other, u, idx, proposal, z) of the half
+    that proposes."""
+    if gap not in (0, 1, 2):
+        raise ValueError(f"stretch_move: gap must be 0, 1 or 2, not {gap}")
+    if buf.x.shape[0] % 2:
+        raise ValueError("nwalkers must be even (red-black split)")
+    h = buf.x.shape[0] // 2
+    half = (slice(0, h), slice(h, 2 * h))
+    accept = propose = None
+    if gap > 0:
+        k, s = gap - 1, half[gap - 1]
+        accept = (buf.x[s], buf.lnp[s], buf.prop[s], buf.z[s],
+                  buf.lnp_prop[s], draws[k][2], buf.accepted[s],
+                  buf.counts[k:k + 1])
+    if gap < 2:
+        s, o = half[gap], half[1 - gap]
+        propose = (buf.x[s], buf.x[o], draws[gap][0], draws[gap][1],
+                   buf.prop[s], buf.z[s])
+    return accept, propose
+
+
+def _k9_check(buf, accept, propose):
+    """(device, h, ndim) of one K9 launch, checked: CUDA, contiguous,
+    the buffers' shapes and dtypes and those of the draws the gap reads,
+    32-bit indices."""
+    f64 = torch.float64
+    used = ([(accept[5], f64)] if accept else []) \
+        + ([(propose[2], f64), (propose[3], torch.int64)] if propose else [])
+    dev = buf.x.device
     if dev.type != "cuda":
-        raise ValueError(f"{name}: K9 takes CUDA tensors")
-    for t in tensors:
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name}: every tensor must be contiguous on "
-                             f"{dev}")
-    return dev
+        raise ValueError("stretch_move_cuda: K9 takes CUDA tensors")
+    if any(t.device != dev or not t.is_contiguous()
+           for t in list(buf) + [t for t, _ in used]):
+        raise ValueError(f"stretch_move_cuda: every tensor must be "
+                         f"contiguous on {dev}")
+    nw, nd = buf.x.shape
+    h = nw // 2
+    if h * nd >= 2**31:
+        raise ValueError("stretch_move_cuda: h * ndim must be below 2^31 "
+                         "(K9 indexes in 32 bits)")
+    if buf.prop.shape != (nw, nd) or buf.x.dtype != f64 \
+            or buf.prop.dtype != f64 \
+            or any(t.shape != (nw,) or t.dtype != f64
+                   for t in (buf.lnp, buf.z, buf.lnp_prop)) \
+            or buf.accepted.shape != (nw,) \
+            or buf.accepted.dtype != torch.uint8 \
+            or buf.counts.shape != (2,) or buf.counts.dtype != torch.int64:
+        raise ValueError(
+            "stretch_move_cuda: buffers x, prop (2h, ndim) and lnp, z, "
+            "lnp_prop (2h,) float64, accepted (2h,) uint8, counts (2,) "
+            "int64")
+    if any(t.shape != (h,) or t.dtype != dt for t, dt in used):
+        raise ValueError("stretch_move_cuda: a half's draws (u, idx, "
+                         "u_acc): (h,) float64, int64, float64")
+    return dev, h, nd
 
 
-def stretch_propose_cuda(active, other, u, idx, a):
-    """K9 stage 0 on CUDA tensors: active, other (h, ndim) float64, u
-    (h,) float64, idx (h,) int64 in [0, h); returns (proposal, z)."""
-    dev = _k9_check("stretch_propose_cuda", (active, other, u, idx))
-    h, nd = active.shape
-    if other.shape != (h, nd) or u.shape != (h,) or idx.shape != (h,) \
-            or active.dtype != torch.float64 or other.dtype != torch.float64 \
-            or u.dtype != torch.float64 or idx.dtype != torch.int64:
-        raise ValueError("stretch_propose_cuda: active, other (h, ndim) "
-                         "float64, u (h,) float64, idx (h,) int64")
-    proposal = torch.empty_like(active)
-    z = torch.empty_like(u)
-    if h * nd:
-        K9.launch(dev, 0, active.data_ptr(), other.data_ptr(), u.data_ptr(),
-                  idx.data_ptr(), z.data_ptr(), proposal.data_ptr(), None,
-                  None, None, None, None, h, nd, float(a), 1.0 / a)
-    return proposal, z
+def stretch_move_cuda(buf, gap, draws, a=2.0):
+    """K9 on CUDA tensors, one launch: the arguments as
+    :func:`stretch_move`."""
+    accept, propose = _stretch_views(buf, gap, draws)
+    dev, h, nd = _k9_check(buf, accept, propose)
+    acc = [t.data_ptr() for t in accept] if accept else [None] * 8
+    pro = [t.data_ptr() for t in propose] if propose else [None] * 6
+    K9.launch(dev, int(accept is not None), int(propose is not None), *acc,
+              *pro, h, nd, float(a), 1.0 / a)
 
 
-def stretch_accept_cuda(active, lnp, proposal, z, lnp_prop, u_acc,
-                        accepted, count):
-    """K9 stage 1 on CUDA tensors, in place as
-    :func:`stretch_accept_plain`."""
-    dev = _k9_check("stretch_accept_cuda", (active, lnp, proposal, z,
-                                            lnp_prop, u_acc, accepted,
-                                            count))
-    h, nd = active.shape
-    if proposal.shape != (h, nd) or any(
-            t.shape != (h,) or t.dtype != torch.float64
-            for t in (lnp, z, lnp_prop, u_acc)) \
-            or accepted.shape != (h,) or accepted.dtype != torch.uint8 \
-            or count.shape != (1,) or count.dtype != torch.int64:
-        raise ValueError("stretch_accept_cuda: active, proposal (h, ndim); "
-                         "lnp, z, lnp_prop, u_acc (h,) float64; accepted "
-                         "(h,) uint8; count (1,) int64")
-    if h:
-        K9.launch(dev, 1, active.data_ptr(), None, None, None, z.data_ptr(),
-                  proposal.data_ptr(), lnp.data_ptr(), lnp_prop.data_ptr(),
-                  u_acc.data_ptr(), accepted.data_ptr(), count.data_ptr(),
-                  h, nd, 0.0, 0.0)
+def stretch_move_plain(buf, gap, draws, a=2.0):
+    """K9's plain version, on any device: the accept, then the propose,
+    of :func:`stretch_move` in torch ops."""
+    accept, propose = _stretch_views(buf, gap, draws)
+    if accept is not None:
+        stretch_accept_plain(*accept)
+    if propose is not None:
+        act, oth, u, idx, prop, z = propose
+        p, zz = stretch_propose_plain(act, oth, u, idx, a)
+        prop.copy_(p)
+        z.copy_(zz)
 
 
-def stretch_propose(active, other, u, idx, a):
-    """Stage 0: K9 on CUDA, the plain version on the CPU."""
-    if active.device.type == "cuda":
-        return stretch_propose_cuda(active, other, u, idx, a)
-    if active.device.type != "cpu":
-        raise ValueError(f"stretch_propose: no version for {active.device}")
-    return stretch_propose_plain(active, other, u, idx, a)
-
-
-def stretch_accept(active, lnp, proposal, z, lnp_prop, u_acc, accepted,
-                   count):
-    """Stage 1: K9 on CUDA, the plain version on the CPU."""
-    args = (active, lnp, proposal, z, lnp_prop, u_acc, accepted, count)
-    if active.device.type == "cuda":
-        return stretch_accept_cuda(*args)
-    if active.device.type != "cpu":
-        raise ValueError(f"stretch_accept: no version for {active.device}")
-    return stretch_accept_plain(*args)
+def stretch_move(buf, gap, draws, a=2.0):
+    """Gap ``gap`` of a red-black step of the ensemble ``buf``
+    (:class:`StretchBuffers`), in place.  Gap 0 proposes half 0 (before
+    its posterior call); gap 1 accepts half 0, then proposes half 1
+    against the walkers of half 0 as they stand after the accept; gap 2
+    accepts half 1 (after its posterior call).  draws: (half 0's, half
+    1's), each (u, idx, u_acc), (h,) float64, int64, float64; a gap
+    reads only what it uses (half 1's may be None at gap 0).  K9 on
+    CUDA, one launch; the plain version on the CPU."""
+    dev = buf.x.device
+    if dev.type == "cuda":
+        return stretch_move_cuda(buf, gap, draws, a)
+    if dev.type != "cpu":
+        raise ValueError(f"stretch_move: no version for {dev}")
+    stretch_move_plain(buf, gap, draws, a)
 
 
 # --------------------------------------------------------------------------
@@ -409,35 +472,35 @@ def run_chain(lnpost, x0, nsteps, generator=None, a=2.0, device=None,
         inj = _injected(draws, nsteps, h, dev)
     elif generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    halves = ((slice(0, h), slice(h, nw)), (slice(h, nw), slice(0, h)))
-    state = {"step": 0, "accepted": torch.empty(nw, dtype=torch.uint8,
-                                                device=dev),
-             "counts": torch.empty(2, dtype=torch.int64, device=dev),
-             "lnp_prop": torch.empty(nw, dtype=torch.float64, device=dev)}
+    buf = StretchBuffers.around(x, lnp)
+    state = {"step": 0}
+
+    def draw(s, k):
+        if draws is not None:
+            return inj[0][s, k], inj[1][s, k], inj[2][s, k]
+        u = torch.rand(h, generator=generator, dtype=torch.float64,
+                       device=dev)
+        idx = torch.randint(0, h, (h,), generator=generator, device=dev)
+        return u, idx, torch.rand(h, generator=generator,
+                                  dtype=torch.float64, device=dev)
 
     def body(st):
+        # three K9 launches a step, one per gap between posterior calls;
+        # the draws in the generator's order u, idx, u_acc per half
         s = st["step"]
-        for k, (act, oth) in enumerate(halves):
-            if draws is not None:
-                u, idx, u_acc = inj[0][s, k], inj[1][s, k], inj[2][s, k]
-            else:
-                u = torch.rand(h, generator=generator, dtype=torch.float64,
-                               device=dev)
-                idx = torch.randint(0, h, (h,), generator=generator,
-                                    device=dev)
-                u_acc = torch.rand(h, generator=generator,
-                                   dtype=torch.float64, device=dev)
-            proposal, z = stretch_propose(x[act], x[oth], u, idx, a)
-            lnp_prop = st["lnp_prop"][act]
-            lnp_prop.copy_(lnpost_v(proposal))
-            stretch_accept(x[act], lnp[act], proposal, z, lnp_prop, u_acc,
-                           st["accepted"][act], st["counts"][k:k + 1])
+        d0 = draw(s, 0)
+        stretch_move(buf, 0, (d0, None), a)
+        buf.lnp_prop[:h].copy_(lnpost_v(buf.prop[:h]))
+        d = (d0, draw(s, 1))
+        stretch_move(buf, 1, d, a)
+        buf.lnp_prop[h:].copy_(lnpost_v(buf.prop[h:]))
+        stretch_move(buf, 2, d, a)
         st["step"] = s + 1
         return st
 
-    def record(_prev, st):
-        return (x.clone(), lnp.clone(), st["accepted"].clone(),
-                st["counts"].clone(), st["lnp_prop"].clone())
+    def record(_prev, _st):
+        return (x.clone(), lnp.clone(), buf.accepted.clone(),
+                buf.counts.clone(), buf.lnp_prop.clone())
 
     _, rec = iterate_fixed(body, state, nsteps, trace_of=record)
     if rec is None:

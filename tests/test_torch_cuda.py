@@ -424,45 +424,82 @@ def test_wls_fit_from_par_tim_on_card(card):
     assert tl.K7.launches == k0 + len(f.chi2_iters)
 
 
-def test_k6_against_plain(card):
+def _k6_ulps(a, b):
+    """|a - b| in units of the spacing at b, 0 where both are equal or
+    both NaN."""
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    sp = torch.abs(torch.nextafter(b, torch.full_like(b, np.inf)) - b)
+    return torch.where(same, torch.zeros_like(a), torch.abs(a - b) / sp)
+
+
+@pytest.mark.parametrize("n_leap", [1, 4, 12])
+@pytest.mark.parametrize("nd", [1, 40, 138, 300])
+def test_k6_against_plain(card, n_leap, nd):
+    """Three draws (adapting, adapting_next) = (T, T), (T, F), (F, F)
+    through K6's n_leap + 1 launches a draw against the plain pre, post
+    and end in turn on the same states, random numbers and gradients,
+    chains going inactive at different steps; after every draw: the same
+    accept decisions, every state within K6_ULPS, and bit-identical from
+    run to run."""
     from pint_tpu_torch import tolerances as tol
     from pint_tpu_torch.gw import hmc
 
-    rng = np.random.default_rng(2)
-    c, nd, n_leap = 5, 40, 4
+    rng = np.random.default_rng(nd * 100 + n_leap)
+    c = 5
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float64), device=card)
     im = t(rng.uniform(0.1, 0.3, nd))
     x0, g0 = t(rng.standard_normal((c, nd))), t(rng.standard_normal((c, nd)))
     lnp0 = t(1e5 + rng.standard_normal(c))
-    states = [hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), im, 0.1)
-              for _ in range(2)]
-    stages = [(hmc.nuts_leap_pre, hmc.nuts_leap_post, hmc.nuts_draw_end),
-              (hmc.nuts_leap_pre_plain, hmc.nuts_leap_post_plain,
-               hmc.nuts_draw_end_plain)]
+    draws = []
+    for _ in range(3):
+        n = rng.integers(1, n_leap + 1, c)
+        n[0], n[-1] = 1, n_leap
+        draws.append((t(rng.standard_normal((c, nd))),
+                      torch.tensor(n, device=card), t(rng.uniform(0, 1, c)),
+                      [(t(1e5 + rng.standard_normal(c)),
+                        t(rng.standard_normal((c, nd))))
+                       for _ in range(n_leap)]))
+
+    def draw(st, d, fused):
+        z, n, u, grads = draws[d]
+        st.z.copy_(z)
+        st.n_steps.copy_(n)
+        st.u.copy_(u)
+        if fused:
+            hmc.nuts_draw_start(st)
+        for i in range(n_leap):
+            if not fused:
+                hmc.nuts_leap_pre_plain(st, i)
+            st.lnp_n.copy_(grads[i][0])
+            st.gn.copy_(grads[i][1])
+            if not fused:
+                hmc.nuts_leap_post_plain(st, i)
+            elif i + 1 < n_leap:
+                hmc.nuts_leap_next(st, i)
+        if fused:
+            hmc.nuts_draw_finish(st, n_leap - 1, d < 2, d + 1 < 2, 0.8, d)
+        else:
+            hmc.nuts_draw_end_plain(st, d < 2, d + 1 < 2, 0.8, d)
+
+    k, k2, p = (hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), im, 0.1)
+                for _ in range(3))
+    hmc.K6.launches = 0
     for d in range(3):
-        z = t(rng.standard_normal((c, nd)))
-        n = torch.tensor(rng.integers(1, n_leap + 1, c), device=card)
-        u = t(rng.uniform(0, 1, c))
-        gs = [(t(1e5 + rng.standard_normal(c)),
-               t(rng.standard_normal((c, nd)))) for _ in range(n_leap)]
-        for st, (pre, post, end) in zip(states, stages):
-            st.z.copy_(z)
-            st.n_steps.copy_(n)
-            st.u.copy_(u)
-            for i in range(n_leap):
-                pre(st, i)
-                st.lnp_n.copy_(gs[i][0])
-                st.gn.copy_(gs[i][1])
-                post(st, i)
-            end(st, d < 2, d + 1 < 2, 0.8, d)
-        k, p = states
-        assert torch.equal(k.accepted, p.accepted)
-        for name in ("x", "p1", "g", "lnp", "eps", "log_eps_bar", "hbar"):
+        for st, fused in ((k, True), (k2, True), (p, False)):
+            draw(st, d, fused)
+        torch.cuda.synchronize()
+        assert torch.equal(k.accepted, p.accepted), d
+        assert torch.equal(k.divergent, p.divergent), d
+        for name in ("x", "g", "lnp", "x1", "p1", "g1", "lnp1", "xn", "ph",
+                     "eps", "eps_used", "log_eps", "log_eps_bar", "hbar",
+                     "acc"):
             a, b = getattr(k, name), getattr(p, name)
-            sp = torch.abs(torch.nextafter(b, torch.full_like(b, np.inf)) - b)
-            assert torch.all(torch.abs(a - b) <= tol.K6_ULPS * sp), name
+            assert float(torch.max(_k6_ulps(a, b))) <= tol.K6_ULPS, (d, name)
+        for a, b in zip(k.tensors(), k2.tensors()):
+            assert _bits_equal_nan(a, b), d
+    assert hmc.K6.launches == 2 * 3 * (n_leap + 1)
 
 
 def test_hmc_on_card_counts_launches(card):
@@ -486,7 +523,7 @@ def test_hmc_on_card_counts_launches(card):
                    num_leapfrog=3, seed=0)
     assert np.all(np.isfinite(res.samples))
     assert K5.launches == K5B.launches == 1 + 4 * 3
-    assert K6.launches == 4 * (2 * 3 + 1)
+    assert K6.launches == 4 * (3 + 1)  # n_leap + 1 a draw
 
 
 def _k8_case(card, g, n, k_pre, k_e, seed, outside=True):
@@ -670,61 +707,77 @@ def test_grid_launches_independent_of_points(card, kind):
 
 
 def _k9_inputs(card, h, nd, seed):
+    """A whole step's inputs: the ensemble (2h, nd), its lnp and the
+    proposals' lnp with the NaN and infinite cases, and each half's
+    draws (u, idx, u_acc)."""
     rng = np.random.default_rng(seed)
     scale = 10.0 ** rng.uniform(-12, 3, nd)
     center = rng.normal(0, 1, nd) * 10.0 ** rng.uniform(-3, 3, nd)
 
     def t(a, dtype=torch.float64):
         return torch.tensor(np.asarray(a), dtype=dtype, device=card)
-    act = t(center + scale * rng.standard_normal((h, nd)))
-    oth = t(center + scale * rng.standard_normal((h, nd)))
-    lnp = rng.normal(1e5, 3.0, h)
-    lnp_prop = lnp + rng.normal(0.0, 3.0, h)
+    x = t(center + scale * rng.standard_normal((2 * h, nd)))
+    lnp = rng.normal(1e5, 3.0, 2 * h)
+    lnp_prop = lnp + rng.normal(0.0, 3.0, 2 * h)
     lnp_prop[:3] = (np.nan, -np.inf, np.inf)[:h]
     lnp[3:4] = np.nan
-    return (act, oth, t(rng.uniform(size=h)),
-            t(rng.integers(0, h, h), torch.int64), t(lnp), t(lnp_prop),
-            t(rng.uniform(size=h)))
+    draws = [(t(rng.uniform(size=h)), t(rng.integers(0, h, h), torch.int64),
+              t(rng.uniform(size=h))) for _ in range(2)]
+    return x, t(lnp), t(lnp_prop), draws
+
+
+def _k9_step(ts, inputs, a, fused):
+    """One red-black step (gaps 0, 1, 2) on copies of the inputs: K9's
+    three launches (``fused``) or its plain version, the plain propose
+    and accept in turn; returns the buffers."""
+    x0, lnp0, lnp_prop, draws = inputs
+    buf = ts.StretchBuffers.around(x0.clone(), lnp0.clone())
+    buf.lnp_prop.copy_(lnp_prop)
+    move = ts.stretch_move if fused else ts.stretch_move_plain
+    for gap in (0, 1, 2):
+        move(buf, gap, draws, a)
+    return buf
 
 
 def _bits_equal_nan(a, b):
+    if not a.is_floating_point():
+        return torch.equal(a, b)
     return bool(torch.equal(torch.isnan(a), torch.isnan(b))
-                and torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)))
+                and torch.equal(torch.nan_to_num(a).view(torch.int64),
+                                torch.nan_to_num(b).view(torch.int64)))
 
 
-@pytest.mark.parametrize("h,nd", [(16, 10), (4096, 64), (3, 1)])
+@pytest.mark.parametrize("h,nd", [(16, 10), (4096, 64), (3, 1),
+                                  (16384, 40)])
 @pytest.mark.parametrize("a", [2.0, 1.7])
 def test_k9_bit_identical_to_plain(card, h, nd, a):
-    """K9's two stages against the plain ones on the same inputs:
-    proposals, z, walkers, lnp, flags and count bit-identical (a NaN
-    equal to a NaN), and bit-identical run to run."""
+    """A whole step through K9's three launches against the plain
+    propose and accept in turn on the same inputs: walkers, lnp,
+    proposals, z, flags and counts bit-identical (a NaN equal to a NaN),
+    and bit-identical run to run; (16384, 40) is past one wave of
+    co-resident blocks."""
     from pint_tpu_torch import sampler as ts
 
-    act, oth, u, idx, lnp, lnp_prop, u_acc = _k9_inputs(card, h, nd, h)
-    outs = []
-    for propose, accept in ((ts.stretch_propose_cuda, ts.stretch_accept_cuda),
-                            (ts.stretch_propose_cuda, ts.stretch_accept_cuda),
-                            (ts.stretch_propose_plain,
-                             ts.stretch_accept_plain)):
-        x, lp = act.clone(), lnp.clone()
-        acc = torch.empty(h, dtype=torch.uint8, device=card)
-        count = torch.empty(1, dtype=torch.int64, device=card)
-        prop, z = propose(x, oth, u, idx, a)
-        accept(x, lp, prop, z, lnp_prop, u_acc, acc, count)
-        outs.append((prop, z, x, lp, acc, count))
+    inputs = _k9_inputs(card, h, nd, h + nd)
+    if (h, nd) == (16384, 40):
+        assert h * nd > 256 * ts.K9.call("stretch_move_max_blocks")
+    ts.K9.launches = 0
+    outs = [_k9_step(ts, inputs, a, True), _k9_step(ts, inputs, a, True)]
+    assert ts.K9.launches == 6
+    outs.append(_k9_step(ts, inputs, a, False))
     torch.cuda.synchronize()
     for other in outs[1:]:
         for k, (p, q) in enumerate(zip(outs[0], other)):
             assert _bits_equal_nan(p.double(), q.double()), k
-    acc = outs[0][4].tolist()
-    assert int(outs[0][5]) == sum(acc)
+    acc, count = outs[0].accepted.tolist(), outs[0].counts.tolist()
+    assert count == [sum(acc[:h]), sum(acc[h:])]
     # a NaN or -inf proposal lnp rejects, +inf accepts, a NaN walker lnp
     # rejects
-    assert acc[:4] == [0, 0, 1, 0][:h]
+    assert acc[:4] == [0, 0, 1, 0]
 
 
 def test_chain_on_card_counts_launches(card):
-    """The injected-draw Gaussian chain on the card: 4 K9 launches per
+    """The injected-draw Gaussian chain on the card: 3 K9 launches per
     step, and the plain chain's positions on the CPU bit for bit."""
     from pint_tpu_torch import sampler as ts
 
@@ -742,7 +795,7 @@ def test_chain_on_card_counts_launches(card):
              rng.uniform(size=(30, 2, 4)))
     ts.K9.launches = 0
     got = ts.run_chain(lnpost, x0, 30, device=card, draws=draws)
-    assert ts.K9.launches == 4 * 30
+    assert ts.K9.launches == 3 * 30
     ref = ts.run_chain(lnpost, x0, 30, device="cpu", draws=draws)
     assert np.array_equal(got["accepted"], ref["accepted"])
     assert np.array_equal(got["chain"], ref["chain"])

@@ -294,6 +294,85 @@ def test_k5b_takes_every_shape_of_its_first_form():
 # the sampler
 # --------------------------------------------------------------------------
 
+def _k6_case(rng, c, nd, n_leap, n_draws=3):
+    """A K6 state's start and ``n_draws`` draws of random numbers and
+    gradients; chains go inactive at different steps (the first after
+    one step, the last after all of them)."""
+    im = torch.tensor(rng.uniform(0.1, 0.3, nd))
+    x0, g0 = (torch.tensor(rng.standard_normal((c, nd))) for _ in range(2))
+    lnp0 = torch.tensor(1e5 + rng.standard_normal(c))
+    draws = []
+    for _ in range(n_draws):
+        n = rng.integers(1, n_leap + 1, c)
+        n[0], n[-1] = 1, n_leap
+        draws.append((torch.tensor(rng.standard_normal((c, nd))),
+                      torch.tensor(n), torch.tensor(rng.uniform(0, 1, c)),
+                      [(torch.tensor(1e5 + rng.standard_normal(c)),
+                        torch.tensor(rng.standard_normal((c, nd))))
+                       for _ in range(n_leap)]))
+    return im, x0, g0, lnp0, draws
+
+
+@pytest.mark.parametrize("n_leap,nd", [(1, 1), (4, 40), (12, 138),
+                                       (4, 300)])
+def test_k6_fused_entry_points_equal_plain_stages(n_leap, nd):
+    """Three draws (two adapting: warmup to warmup, then warmup to
+    sampling) through the fused entry points (``nuts_draw_start``,
+    ``nuts_leap_next``, ``nuts_draw_finish``) on CPU tensors against pre,
+    post and end in turn: every buffer of the state bit for bit after
+    each draw."""
+    from pint_tpu_torch.gw import hmc
+
+    c = 5
+    im, x0, g0, lnp0, draws = _k6_case(np.random.default_rng(nd), c, nd,
+                                       n_leap)
+    states = [hmc.NutsState(x0.clone(), g0.clone(), lnp0.clone(), im, 0.1)
+              for _ in range(2)]
+    for d, (z, n, u, grads) in enumerate(draws):
+        for fused, st in enumerate(states):
+            st.z.copy_(z)
+            st.n_steps.copy_(n)
+            st.u.copy_(u)
+            if fused:
+                hmc.nuts_draw_start(st)
+            for i in range(n_leap):
+                if not fused:
+                    hmc.nuts_leap_pre_plain(st, i)
+                st.lnp_n.copy_(grads[i][0])
+                st.gn.copy_(grads[i][1])
+                if not fused:
+                    hmc.nuts_leap_post_plain(st, i)
+                elif i + 1 < n_leap:
+                    hmc.nuts_leap_next(st, i)
+            if fused:
+                hmc.nuts_draw_finish(st, n_leap - 1, d < 2, d + 1 < 2, 0.8,
+                                     d)
+            else:
+                hmc.nuts_draw_end_plain(st, d < 2, d + 1 < 2, 0.8, d)
+        for a, b in zip(*(st.tensors() for st in states)):
+            if a.is_floating_point():  # bits, a NaN equal to a NaN
+                assert torch.equal(torch.isnan(a), torch.isnan(b))
+                a, b = (torch.nan_to_num(t).view(torch.int64) for t in (a, b))
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["x", "eps", "n_steps", "accepted"])
+def test_nuts_state_rebinding_a_tensor_drops_k6_pointers(name):
+    """K6 packs the state's pointers once; rebinding one of its tensors
+    (not an in-place update) makes the next launch check and repack."""
+    from pint_tpu_torch.gw import hmc
+
+    f64 = dict(dtype=torch.float64)
+    st = hmc.NutsState(torch.zeros((2, 3), **f64), torch.zeros((2, 3), **f64),
+                       torch.zeros(2, **f64), torch.ones(3, **f64), 0.1)
+    st._k6_ptrs = "packed"
+    st.it = 4
+    getattr(st, name).zero_()
+    assert st._k6_ptrs == "packed"
+    setattr(st, name, getattr(st, name).clone())
+    assert st._k6_ptrs is None
+
+
 def test_run_nuts_injected_draws_match_jax(small_posteriors):
     """A 2-chain, 3-draw run with JAX's own draws (replayed from the key
     splits its transition makes): the same chain."""

@@ -102,23 +102,22 @@ def test_bayesian_and_sampler_modules_are_scanned():
 
 
 def test_k9_wrapper_never_falls_back():
-    """K9's wrappers raise on CPU tensors, and the dispatchers on a
-    device with no version; the plain stages run only for CPU
-    tensors."""
+    """K9's wrapper raises on CPU tensors, and the dispatcher on a device
+    with no version; the plain stages run only for CPU tensors."""
     from pint_tpu_torch import sampler as ts
 
     f64 = dict(dtype=torch.float64)
-    act, u = torch.zeros((2, 3), **f64), torch.full((2,), 0.5, **f64)
-    idx = torch.zeros(2, dtype=torch.int64)
+    buf = ts.StretchBuffers.around(torch.zeros((4, 3), **f64),
+                                   torch.zeros(4, **f64))
+    u = torch.full((2,), 0.5, **f64)
+    d = (u, torch.zeros(2, dtype=torch.int64), u)
     with pytest.raises(ValueError, match="CUDA"):
-        ts.stretch_propose_cuda(act, act, u, idx, 2.0)
+        ts.stretch_move_cuda(buf, 0, (d, None))
     with pytest.raises(ValueError, match="CUDA"):
-        ts.stretch_accept_cuda(act, u, act, u, u, u,
-                               torch.zeros(2, dtype=torch.uint8),
-                               torch.zeros(1, dtype=torch.int64))
-    meta = act.to("meta")
+        ts.stretch_move_cuda(buf, 2, (None, d))
+    meta = ts.StretchBuffers(*(t.to("meta") for t in buf))
     with pytest.raises(ValueError, match="no version"):
-        ts.stretch_propose(meta, meta, u.to("meta"), idx.to("meta"), 2.0)
+        ts.stretch_move(meta, 0, (tuple(t.to("meta") for t in d), None))
     assert ts.K9.launches == 0
 
 

@@ -94,14 +94,17 @@ def test_stretch_half_plain_matches_jax_bitwise(a, seed):
     u = np.asarray(jax.random.uniform(k_z, (h,)))
     idx = np.asarray(jax.random.randint(k_idx, (h,), 0, h))
     u_acc = np.asarray(jax.random.uniform(k_acc, (h,)))
-    new, lnp = torch.tensor(act), torch.tensor(lnp_a)
-    acc = torch.empty(h, dtype=torch.uint8)
-    count = torch.empty(1, dtype=torch.int64)
-    proposal, z = ts.stretch_propose(new, torch.tensor(oth),
-                                     torch.tensor(u), torch.tensor(idx), a)
-    ts.stretch_accept(new, lnp, proposal, z, torch.func.vmap(tl)(proposal),
-                      torch.tensor(u_acc), acc, count)
-    assert 0 < int(count) == int(acc.sum()) < h
+    # the moving half is half 0 of an ensemble whose half 1 is ``oth``;
+    # gap 1 accepts half 0 (and proposes half 1, which is not read)
+    buf = ts.StretchBuffers.around(
+        torch.tensor(np.concatenate([act, oth])),
+        torch.tensor(np.concatenate([lnp_a, np.zeros(h)])))
+    d = (torch.tensor(u), torch.tensor(idx), torch.tensor(u_acc))
+    ts.stretch_move(buf, 0, (d, None), a)
+    buf.lnp_prop[:h] = torch.func.vmap(tl)(buf.prop[:h])
+    ts.stretch_move(buf, 1, (d, d), a)
+    acc, new, lnp = buf.accepted[:h], buf.x[:h], buf.lnp[:h]
+    assert 0 < int(buf.counts[0]) == int(acc.sum()) < h
     assert np.array_equal(acc.numpy().astype(bool), np.asarray(jacc))
     assert np.array_equal(new.numpy(), np.asarray(jnew))
     assert np.array_equal(lnp.numpy(), np.asarray(jlnp), equal_nan=True)
@@ -112,22 +115,95 @@ def test_stretch_accept_rejects_nan():
     proposal from -inf and a +inf proposal do (XLA's fused multiply-add
     carries the infinity)."""
     h, nd = 5, 2
-    act = torch.zeros((h, nd), dtype=torch.float64)
-    prop = torch.ones((h, nd), dtype=torch.float64)
-    lnp = torch.tensor([0.0, np.nan, -np.inf, -np.inf, 0.0])
-    lnp_prop = torch.tensor([np.nan, 5.0, np.nan, 0.0, np.inf])
-    acc = torch.empty(h, dtype=torch.uint8)
-    count = torch.empty(1, dtype=torch.int64)
-    ts.stretch_accept(act, lnp, prop, torch.full((h,), 1.5,
-                                                 dtype=torch.float64),
-                      lnp_prop, torch.full((h,), 0.5, dtype=torch.float64),
-                      acc, count)
-    assert acc.tolist() == [0, 0, 0, 1, 1] and int(count) == 2
+    buf = ts.StretchBuffers.around(
+        torch.zeros((2 * h, nd), dtype=torch.float64),
+        torch.tensor([0.0] * h + [0.0, np.nan, -np.inf, -np.inf, 0.0],
+                     dtype=torch.float64))
+    buf.prop.fill_(1.0)
+    buf.z.fill_(1.5)
+    buf.lnp_prop[h:] = torch.tensor([np.nan, 5.0, np.nan, 0.0, np.inf],
+                                    dtype=torch.float64)
+    # gap 2 accepts half 1 alone
+    ts.stretch_move(buf, 2, (None, (None, None, torch.full(
+        (h,), 0.5, dtype=torch.float64))))
+    act, prop, lnp = buf.x[h:], buf.prop[h:], buf.lnp[h:]
+    assert buf.accepted[h:].tolist() == [0, 0, 0, 1, 1]
+    assert int(buf.counts[1]) == 2
     assert torch.equal(act[3:], prop[3:])
     assert lnp[3:].tolist() == [0.0, np.inf]
     assert torch.equal(act[:3], torch.zeros((3, nd), dtype=torch.float64))
     lnratio = jnp.asarray(9.0) * jnp.log(1.5) + jnp.asarray(np.inf) - 0.0
     assert bool(jnp.log(0.5) < lnratio)  # JAX accepts it too
+
+
+def _ensemble(rng, h, nd):
+    """Two halves of walkers in one (2h, nd) ensemble, their lnp with
+    the NaN and infinite cases, and the draws of a step."""
+    _, _, act, oth = _walkers(rng, h, nd)
+    lnp = rng.normal(1e5, 3.0, 2 * h)
+    lnp_prop = lnp + rng.normal(0.0, 3.0, 2 * h)
+    lnp_prop[:3] = (np.nan, -np.inf, np.inf)[:h]
+    lnp[3:4] = np.nan
+    draws = [(torch.tensor(rng.uniform(size=h)),
+              torch.tensor(rng.integers(0, h, h)),
+              torch.tensor(rng.uniform(size=h))) for _ in range(2)]
+    return (torch.tensor(np.concatenate([act, oth])), torch.tensor(lnp),
+            torch.tensor(lnp_prop), draws)
+
+
+def _bits(t):
+    t = t.double()
+    return torch.isnan(t), torch.nan_to_num(t).view(torch.int64)
+
+
+@pytest.mark.parametrize("h,nd", [(16, 10), (3, 1), (64, 7)])
+@pytest.mark.parametrize("a", [2.0, 1.7])
+def test_stretch_move_fused_equals_plain_stages(h, nd, a):
+    """A whole step through :func:`stretch_move` on CPU tensors (gaps 0,
+    1, 2: propose half 0; accept half 0 and propose half 1; accept half
+    1) against the plain propose and accept of each half in turn: every
+    buffer bit for bit, NaN equal to NaN."""
+    rng = np.random.default_rng(h * nd)
+    x0, lnp0, lnp_prop, draws = _ensemble(rng, h, nd)
+
+    def step(fused):
+        buf = ts.StretchBuffers.around(x0.clone(), lnp0.clone())
+        buf.lnp_prop.copy_(lnp_prop)
+        if fused:
+            for gap in (0, 1, 2):
+                ts.stretch_move(buf, gap, draws, a)
+            return buf
+        for k, (s, o) in enumerate(((slice(0, h), slice(h, 2 * h)),
+                                    (slice(h, 2 * h), slice(0, h)))):
+            u, idx, u_acc = draws[k]
+            buf.prop[s], buf.z[s] = ts.stretch_propose_plain(
+                buf.x[s], buf.x[o], u, idx, a)
+            ts.stretch_accept_plain(buf.x[s], buf.lnp[s], buf.prop[s],
+                                    buf.z[s], buf.lnp_prop[s], u_acc,
+                                    buf.accepted[s], buf.counts[k:k + 1])
+        return buf
+
+    got, ref = step(True), step(False)
+    for g, r in zip(got, ref):
+        assert all(torch.equal(p, q) for p, q in zip(_bits(g), _bits(r)))
+    assert got.counts.tolist() == [int(got.accepted[:h].sum()),
+                                   int(got.accepted[h:].sum())]
+
+
+@pytest.mark.parametrize("nw,gap", [(8, 3), (8, -1), (7, 0)])
+def test_stretch_move_refuses_what_is_not_a_red_black_gap(nw, gap):
+    """A gap other than 0, 1 or 2, or an odd ensemble, raises before
+    anything moves."""
+    rng = np.random.default_rng(5)
+    x, lnp = (torch.tensor(rng.standard_normal(s)) for s in ((nw, 2), nw))
+    buf = ts.StretchBuffers.around(x, lnp)
+    before = x.clone()
+    d = (torch.full((nw // 2,), 0.5, dtype=torch.float64),
+         torch.zeros(nw // 2, dtype=torch.int64),
+         torch.full((nw // 2,), 0.5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="gap must be|even"):
+        ts.stretch_move(buf, gap, (d, d))
+    assert torch.equal(x, before)
 
 
 MU = np.array([1.0, -2.0, 0.5])
