@@ -68,7 +68,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     16 chains of perturbed red-noise weights: within
     ``tolerances.KRON_PULSAR_REL`` per output, bit-identical from run
     to run, times beside the batched cholesky_ex + cholesky_solve +
-    matmul and its autograd backward, K5's kernels per call, ptxas
+    matmul and the plain backward (its autograd beside it), K5's
+    kernels per call, ptxas
     reports of K5 and K5b (a spill fails the phase), K5's blocks per SM
     and waves, K5b's shared bytes; K6 (the transition's elementwise
     work, 13 launches a draw) against its plain stages in turn on the
@@ -133,11 +134,15 @@ the closing ``{"ok": true, ...}`` line is not printed:
 21. ``k5 wide``: K5w and K5bw against their plain versions at the wide
     path's own inputs (the common process's noise weights, 1 x 4
     pulsars, and the posterior's at its 4 theta), at the wide case's
-    grams with 16 chains and at nb = 470, m2 = 28 (16 chains x 4
-    pulsars): within ``tolerances.KRON_PULSAR_REL``, bit-identical run
-    to run, no ptxas spill; times beside the library calls and bounds
-    (the kernels line takes the posterior's 4-theta row, the shape at
-    which K5bw runs on the path);
+    grams with 16 chains and at nb = 470, m2 = 28 with 16 chains x 4
+    pulsars and 16 chains x 68 pulsars (an HMC gradient's capacity
+    stage on a NANOGrav-width array whose pulsars carry ECORR epochs):
+    within ``tolerances.KRON_PULSAR_REL``, bit-identical run to run, L's
+    upper triangle zero, no ptxas spill; times beside the library calls
+    (the backward's: the plain backward, autograd of the plain forward
+    beside it) and bounds, shared bytes, blocks per SM and waves (the
+    kernels line takes the posterior's 4-theta row, the shape at which
+    K5bw runs on the path);
 22. ``mcmc gls`` / ``mcmc wls``: the timing posterior of the par/tim
     case (``BayesianTiming``: the par with ECORR and red noise fixed;
     the white par), its model fitted on the card and then set to JAX's
@@ -1291,9 +1296,12 @@ def k5_times(pre, phi, a, p, cots, ga, gp, labels, reps=50):
     m2 = pre.g_ff.shape[-1]
     r = 1 + m2
     nblk = b_ * p_
-    fwd_bytes = 8 * (sum(t.numel() for t in pre) + phi.numel()
+    # g_uu is symmetric: the function needs its lower triangle once, and
+    # G = Z^T Z its upper half (M's, beside chi2's and x's products)
+    fwd_bytes = 8 * (sum(t.numel() for t in pre) - pre.g_uu.numel()
+                     + p_ * nb * (nb + 1) // 2 + phi.numel()
                      + sum(t.numel() for t in a))
-    fwd_flops = nblk * (nb**3 / 3 + 2 * nb * nb * r + 2 * nb * m2 * m2
+    fwd_flops = nblk * (nb**3 / 3 + 2 * nb * nb * r + nb * m2 * (m2 + 1)
                         + 2 * nb * m2 + 4 * nb)
     # both backward forms read only L's lower triangle
     bwd_bytes = 8 * (phi.numel() + nblk * nb * (nb + 1) // 2
@@ -1336,6 +1344,11 @@ def k5_times(pre, phi, a, p, cots, ga, gp, labels, reps=50):
                       "timed_by": how,
                       "per_call_with_enqueue_ms": cuda_ms(kern, reps=20),
                       "kernels_per_call": 1, "blocks": nblk}
+    # the backward's library yardstick is the plain backward itself (one
+    # solve_triangular(L, I) and elementwise sums), autograd beside it
+    bwd = out[labels[1]]
+    bwd["library_autograd_ms"] = bwd["library_ms"]
+    bwd["library_ms"] = bwd["plain_ms"]
     return out
 
 
@@ -2156,7 +2169,7 @@ def synthetic_grams(n_psr, nb, m2, seed, n_rows=None):
     n = n_rows or nb + 100
     t = rng.standard_normal((n_psr, n, nb + m2 + 1))
     w = rng.uniform(0.5, 2.0, (n_psr, n)) * 1e12
-    g = np.einsum("pni,pn,pnj->pij", t, w, t)
+    g = np.matmul((t * w[..., None]).transpose(0, 2, 1), t)
     u, f = slice(0, nb), slice(nb, nb + m2)
     return KronGram(*(torch.tensor(a.copy(), device="cuda") for a in (
         g[:, u, u], g[:, u, f], g[:, f, f], g[:, u, -1], g[:, f, -1],
@@ -2219,15 +2232,94 @@ def phase_wide_case():
             "theta": arrays["ref_theta"]}
 
 
+def k5_wide_cases(post, theta, kd=None):
+    """{label: (grams, phi)} at which the wide forms are checked and
+    timed: the posterior's weights at the wide case's 4 theta ("path
+    b4", nb = 203, m2 = 28, the shape at which K5bw runs on the path);
+    with the common process's data ``kd``, its noise weights ("path
+    b1", which ``lnlike`` and the grid reduce once) and the wide case's
+    grams with 16 chains of perturbed red-noise weights ("16 chains");
+    nb = 470, m2 = 28 at 16 chains x 4 pulsars ("nb470", a pulsar of
+    400 ECORR epochs and 30 red-noise modes) and at 16 chains x 68
+    pulsars ("nb470 x68": an HMC gradient's capacity stage on a
+    NANOGrav-width array whose pulsars carry ECORR epochs), from
+    ``synthetic_grams``."""
+    import torch
+
+    rng = np.random.default_rng(9)
+    c = HMC_RUN["n_chains"]
+    th = np.repeat(post.center()[None], c, axis=0)
+    th[:, 2:] += rng.uniform(-0.5, 0.5, th[:, 2:].shape)
+    cases = {}
+    if kd is not None:
+        cases["path b1"] = (kd.gram, kd.phi_noise[None].contiguous())
+    cases["path b4"] = (post.gram, post.phi_noise_at(torch.as_tensor(
+        theta, device="cuda")).contiguous())
+    if kd is not None:
+        cases["16 chains"] = (post.gram, post.phi_noise_at(
+            torch.as_tensor(th, device="cuda")).contiguous())
+    for label, n_psr, seed in (("nb470", 4, 470), ("nb470 x68", 68, 68)):
+        cases[label] = (synthetic_grams(n_psr, 470, 28, seed=seed),
+                        torch.tensor(10.0 ** rng.uniform(
+                            -16, -12, (c, n_psr, 470)), device="cuda"))
+    return cases
+
+
+#: (case of k5_wide_cases, calls a timing) of k5_wide_times
+K5_WIDE_TURNS = (("path b4", 50), ("nb470", 20), ("nb470 x68", 5))
+
+
+def k5_wide_times():
+    """K5w and K5bw of the imported ``pint_tpu_torch`` under
+    ``queued_ms``, for ``tools/torch_turns.py``: at the shapes of
+    ``K5_WIDE_TURNS`` (after :func:`phase_wide_case`), the forward
+    (``k5w_ms``), the backward on its L and X for random cotangents
+    (``k5bw_ms``), the plain backward (the backward's yardstick) and
+    the plain forward, and each kernel's blocks per SM where the
+    package's library reports them."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wide = phase_wide_case()
+    cases = k5_wide_cases(wide["post"], wide["theta"])
+    rng = np.random.default_rng(14)
+    out = {}
+    for label, reps in K5_WIDE_TURNS:
+        pre, phi = cases[label]
+        a = tl.kron_pulsar_cuda(pre, phi)
+        cots = [torch.as_tensor(rng.standard_normal(t.shape), device="cuda")
+                for t in a[:4]]
+        b, p, nb = phi.shape
+        bwd = (phi, a[4], a[5], *cots)
+        row = {"chains": b, "pulsars": p, "nb": nb, "m2": pre.g_ff.shape[-1],
+               "reps": reps,
+               "k5w_ms": queued_ms(partial(tl.kron_pulsar_cuda, pre, phi),
+                                   reps),
+               "k5bw_ms": queued_ms(partial(tl.kron_pulsar_bwd_cuda, *bwd),
+                                    reps),
+               "plain_bwd_ms": queued_ms(
+                   partial(tl.kron_pulsar_bwd_plain, *bwd), reps),
+               "plain_fwd_ms": queued_ms(
+                   partial(tl.kron_pulsar_plain, pre, phi), reps)}
+        try:
+            row["blocks_per_sm"] = [
+                tl.K5W.call("kron_pulsar_wide_occupancy", nb, d)
+                for d in (0, 1)]
+        except AttributeError:  # an earlier library has no such query
+            row["blocks_per_sm"] = None
+        out[label] = row
+        del a, bwd, cots
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_k5_wide(wide):
-    """K5w and K5bw against their plain versions on the card: at the
-    wide path's own inputs (the common process's noise weights, which
-    ``lnlike`` and the grid reduce once, and the posterior's at the 4
-    theta of its value_and_grad), at the wide case's grams with 16
-    chains of perturbed red-noise weights, and at nb = 470, m2 = 28,
-    16 chains x 4 pulsars (a pulsar of 400 ECORR epochs and 30
-    red-noise modes); bit identity run to run, ptxas report, times
-    beside the library calls and the bound."""
+    """K5w and K5bw against their plain versions on the card at every
+    shape of :func:`k5_wide_cases`: bit identity run to run, ptxas
+    report (a spill fails the phase), times beside the library calls
+    and the bound, shared bytes, blocks per SM and waves."""
     import torch
 
     from pint_tpu_torch import tolerances as tol
@@ -2236,20 +2328,9 @@ def phase_k5_wide(wide):
                                        kron_pulsar_bwd_plain,
                                        kron_pulsar_cuda, kron_pulsar_plain)
 
-    post, kd = wide["post"], wide["crn"].kron_data
-    rng = np.random.default_rng(9)
-    c = HMC_RUN["n_chains"]
-    th = np.repeat(post.center()[None], c, axis=0)
-    th[:, 2:] += rng.uniform(-0.5, 0.5, th[:, 2:].shape)
-    cases = {
-        "path b1": (kd.gram, kd.phi_noise[None].contiguous()),
-        "path b4": (post.gram, post.phi_noise_at(torch.as_tensor(
-            wide["theta"], device="cuda")).contiguous()),
-        "16 chains": (post.gram, post.phi_noise_at(
-            torch.as_tensor(th, device="cuda")).contiguous())}
-    pre470 = synthetic_grams(4, 470, 28, seed=470)
-    cases["nb470"] = (pre470, torch.tensor(
-        10.0 ** rng.uniform(-16, -12, (c, 4, 470)), device="cuda"))
+    cases = k5_wide_cases(wide["post"], wide["theta"], wide["crn"].kron_data)
+    rng = np.random.default_rng(10)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for label, (pre, phi) in cases.items():
         a = kron_pulsar_cuda(pre, phi)
@@ -2262,26 +2343,36 @@ def phase_k5_wide(wide):
         gp = kron_pulsar_bwd_plain(phi, a[4], a[5], *cots)
         torch.cuda.synchronize()
         names = ("chi2", "x", "m", "ld", "L", "X")
-        errs = {n: tol.vector_rel(x.cpu().numpy(), y.cpu().numpy())
-                for n, x, y in zip(names, a, p)}
-        errs["grad_phi"] = tol.vector_rel(ga.cpu().numpy(),
-                                          gp.cpu().numpy())
+        errs = {n: tol.vector_rel(x, y) for n, x, y in zip(names, a, p)}
+        errs["grad_phi"] = tol.vector_rel(ga, gp)
         rerun = _bits_equal(a, b) and _bits_equal((ga,), (gb,))
+        upper = bool(torch.all(torch.triu(a[4], diagonal=1) == 0))
+        del b, gb
         b_, p_, nb = phi.shape
         m2 = pre.g_ff.shape[-1]
         log(f"k5 wide {label}: {b_} chains x {p_} pulsars, nb {nb}, m2 "
             f"{m2}, panel {k5_wide_panel(nb)}: kernel vs plain "
-            "(vector_rel) " + json.dumps(errs) + f" (limit {tol.KRON_PULSAR_REL:g}); run-to-run "
-            f"bit-identical {rerun}")
-        if not (rerun and all(v <= tol.KRON_PULSAR_REL
-                              for v in errs.values())):
+            "(vector_rel) " + json.dumps(errs) + f" (limit "
+            f"{tol.KRON_PULSAR_REL:g}); run-to-run bit-identical {rerun}; "
+            f"L's upper triangle zero {upper}")
+        if not (rerun and upper and all(v <= tol.KRON_PULSAR_REL
+                                        for v in errs.values())):
             raise AssertionError(f"K5w/K5bw disagree at {label}")
+        reps = 10 if b_ * p_ < 256 else 3
         rows = k5_times(pre, phi, a, p, cots, ga, gp,
-                        (f"k5w {label}", f"k5bw {label}"), reps=10)
-        for name, row in rows.items():
+                        (f"k5w {label}", f"k5bw {label}"), reps=reps)
+        for bwd, (name, row) in enumerate(rows.items()):
+            row["shared_bytes"] = K5W.call("kron_pulsar_wide_smem", nb, bwd)
+            row["blocks_per_sm"] = K5W.call("kron_pulsar_wide_occupancy",
+                                            nb, bwd)
+            row["waves"] = row["blocks"] / (row["blocks_per_sm"] * sms)
             log(f"{name}: " + json.dumps(row))
         out.update(rows)
-    rep = build_report(K5W, ("kron_pulsar_fwd_wide", "kron_pulsar_bwd_wide"))
+        del a, p, ga, gp, cots
+        torch.cuda.empty_cache()
+    rep = build_report(K5W, tuple(
+        f"kron_pulsar_{d}_wide_kernelILi{bs}E" for d in ("fwd", "bwd")
+        for bs in (8, 16, 32)))
     log("k5 wide ptxas: " + json.dumps(rep))
     return out
 
@@ -2551,6 +2642,36 @@ class _K9Step:
         from pint_tpu_torch.sampler import stretch_move
 
         stretch_move(self.buf, 1, self.draws, self.a)
+
+
+def k9_k6_times():
+    """K9 and K6 of the imported ``pint_tpu_torch`` under
+    ``queued_ms``, for ``tools/torch_turns.py``: a K9 red-black step
+    (``step_ms``) and its middle launch (``half_ms``) at 16 walkers a
+    half x 10 parameters and 4096 x 64, and one K6 draw's n_leap + 1
+    launches (``draw_ms``) at ``K6_SHAPE``, on buffers updated in place;
+    beside each, calls made back to back with the host's enqueue
+    (``cuda_ms``)."""
+    from pint_tpu_torch.gw import hmc
+
+    out = {"k9": {}}
+    for h, nd in ((16, 10), (4096, 64)):
+        st = _K9Step(_k9_synthetic(h, nd))
+        out["k9"][f"{h}x{nd}"] = {
+            "step_ms": queued_ms(st.step), "half_ms": queued_ms(st.gap),
+            "step_with_enqueue_ms": cuda_ms(st.step, reps=50)}
+    c, nd, n_leap = K6_SHAPE
+    st = _k6_timed_state()
+
+    def draw():
+        hmc.nuts_draw_start(st)
+        for i in range(n_leap - 1):
+            hmc.nuts_leap_next(st, i)
+        hmc.nuts_draw_finish(st, n_leap - 1, False, False, 0.8, 5)
+    out["k6"] = {"draw_ms": queued_ms(draw, reps=20),
+                 "draw_with_enqueue_ms": cuda_ms(draw, reps=20),
+                 "chains": c, "ndim": nd, "n_leap": n_leap}
+    return out
 
 
 def phase_k9(mc):

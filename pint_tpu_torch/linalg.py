@@ -916,14 +916,16 @@ K5B = CudaKernel(
     "kron_pulsar_bwd", "kron_pulsar.cu", "kron_pulsar_bwd_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
 
-#: the wide forms of K5 and K5b (global-memory capacity, column panels
-#: in shared memory), for pulsars too wide for the two above
+#: the wide forms of K5 and K5b (the capacity in global memory, staged
+#: through shared memory by tiles, products on the fp64 MMA), for
+#: pulsars too wide for the two above; each takes a scratch of
+#: ``kron_pulsar_wide_scratch`` doubles a block after its outputs
 K5W = CudaKernel(
     "kron_pulsar_fwd_wide", "kron_pulsar.cu", "kron_pulsar_fwd_wide_launch",
-    [ctypes.c_void_p] * 14 + [ctypes.c_int64] * 4)
+    [ctypes.c_void_p] * 15 + [ctypes.c_int64] * 4)
 K5BW = CudaKernel(
     "kron_pulsar_bwd_wide", "kron_pulsar.cu", "kron_pulsar_bwd_wide_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3)
+    [ctypes.c_void_p] * 9 + [ctypes.c_int64] * 3)
 
 #: one block's shared memory on an H100 (227 kB): the widest (nb, m2) the
 #: narrow K5 and K5b take
@@ -1000,15 +1002,23 @@ def _k5_shape(nb, m2):
 
 def k5_wide_panel(nb):
     """The wide forms' panel width at nb, from the kernels' library (it
-    builds the library): 32, 16 or 8, the widest whose shared memory
-    fits; 0 where nb is too wide for them."""
+    builds the library): 32, 16 or 8, the widest at which both kernels'
+    shared memory fits (K5w: the panel below the diagonal block, roundup
+    (nb, panel) + 16 rows; K5bw: a panel of L^-1, roundup16(nb) rows,
+    beside a strip of L at least 16 columns deep); 0 where nb is too
+    wide for them."""
     return K5W.call("kron_pulsar_wide_panel", nb)
 
 
-def _check_wide(nb, m2):
-    if not k5_wide_panel(nb):
+def _wide_scratch(nb, m2, n_blocks, dev):
+    """The wide forms' scratch (their diagonal tiles' inverses) for
+    ``n_blocks`` blocks; raises where nb is too wide for them."""
+    per_block = K5W.call("kron_pulsar_wide_scratch", nb)
+    if not per_block:
         raise ValueError(f"K5/K5b: nb = {nb}, m2 = {m2} does not fit one "
                          "block's shared memory in either form")
+    return torch.empty(n_blocks * per_block, dtype=torch.float64,
+                       device=dev)
 
 
 def kron_pulsar_cuda(pre: KronGram, phi):
@@ -1025,7 +1035,7 @@ def kron_pulsar_cuda(pre: KronGram, phi):
                          "g_uu (P, nb, nb), g_uf (P, nb, m2)")
     form, _ = _k5_shape(nb, m2)
     if form == "wide":
-        _check_wide(nb, m2)
+        scratch = _wide_scratch(nb, m2, b * p, dev)
     phi = phi.contiguous()
     f64 = dict(dtype=torch.float64, device=dev)
     chi2 = torch.empty((b, p), **f64)
@@ -1034,13 +1044,13 @@ def kron_pulsar_cuda(pre: KronGram, phi):
     ld = torch.empty((b, p), **f64)
     L = torch.empty((b, p, nb, nb), **f64)
     X = torch.empty((b, p, nb, 1 + m2), **f64)
-    args = (phi.data_ptr(), *(t.data_ptr() for t in grams),
+    ptrs = (phi.data_ptr(), *(t.data_ptr() for t in grams),
             chi2.data_ptr(), x.data_ptr(), m.data_ptr(), ld.data_ptr(),
-            L.data_ptr(), X.data_ptr(), b * p, p, nb, m2)
+            L.data_ptr(), X.data_ptr())
     if b * p and form == "narrow":
-        K5.launch(dev, *args)
+        K5.launch(dev, *ptrs, b * p, p, nb, m2)
     elif b * p:  # L and X are the wide form's working storage
-        K5W.launch(dev, *args)
+        K5W.launch(dev, *ptrs, scratch.data_ptr(), b * p, p, nb, m2)
     return chi2, x, m, ld, L, X
 
 
@@ -1060,13 +1070,13 @@ def kron_pulsar_bwd_cuda(phi, L, X, gchi, gx, gm, gld):
                          "(B, P, nb)")
     _, form = _k5_shape(nb, m2)
     if form == "wide":
-        _check_wide(nb, m2)
+        scratch = _wide_scratch(nb, m2, b * p, dev)
     gphi = torch.empty_like(ts[0])
-    args = (*(t.data_ptr() for t in ts), gphi.data_ptr(), b * p, nb, m2)
+    ptrs = (*(t.data_ptr() for t in ts), gphi.data_ptr())
     if b * p and form == "narrow":
-        K5B.launch(dev, *args)
+        K5B.launch(dev, *ptrs, b * p, nb, m2)
     elif b * p:
-        K5BW.launch(dev, *args)
+        K5BW.launch(dev, *ptrs, scratch.data_ptr(), b * p, nb, m2)
     return gphi
 
 

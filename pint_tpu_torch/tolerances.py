@@ -17,6 +17,7 @@ bound ``2 * eps * kappa``, whichever is larger.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 #: nominal pins: fitted values in units of their uncertainty, chi^2 of
 #: each iteration and uncertainties relative
@@ -175,7 +176,14 @@ def vector_rel(got, ref) -> float:
     whose terms cancel has a value near zero with an absolute error of
     ~eps sum|terms|; element-wise relative error there measures the
     cancellation, not the port.  The vector's scale is its largest
-    element."""
+    element.  A torch ``ref`` is compared on its own device (the wide
+    forms' L and X run to gigabytes on the card)."""
+    if isinstance(ref, torch.Tensor):
+        ref = ref.to(torch.float64)
+        got = torch.as_tensor(got, dtype=torch.float64, device=ref.device)
+        scale = float(torch.max(torch.abs(ref)))
+        return float(torch.max(torch.abs(got - ref))) / scale if scale \
+            else float(torch.max(torch.abs(got)))
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     scale = float(np.max(np.abs(ref)))
     return float(np.max(np.abs(got - ref))) / scale if scale else \

@@ -172,7 +172,7 @@ def _grams(card, seed, p, nb, m2, n=200):
     rng = np.random.default_rng(seed)
     t = rng.standard_normal((p, n, nb + m2 + 1))
     w = rng.uniform(0.5, 2.0, (p, n)) * 1e12
-    g = np.einsum("pni,pn,pnj->pij", t, w, t)
+    g = np.matmul((t * w[..., None]).transpose(0, 2, 1), t)
     u, f = slice(0, nb), slice(nb, nb + m2)
     return KronGram(*(torch.tensor(a.copy(), device=card) for a in (
         g[:, u, u], g[:, u, f], g[:, f, f], g[:, u, -1], g[:, f, -1],
@@ -246,18 +246,21 @@ def test_k5_failed_pivot_is_nan(card):
         assert torch.all(torch.isnan(y[:, 1]))
 
 
-@pytest.mark.parametrize("nb", [145, 157, 203, 470])
+@pytest.mark.parametrize("nb", [145, 157, 203, 470, 1500, 3000, 3304])
 def test_k5_k5b_wide_against_plain_and_deterministic(card, nb):
     """The wide forms K5w/K5bw, taken where the narrow forms' shared
     memory does not hold the capacity (145 and 157: K5w with the narrow
     K5b, X, gM and gx staged; 203 and 470: both wide; 470 is a
-    pulsar of 400 ECORR epochs and 30 red-noise modes), against the plain
-    versions, bit-identical run to run, L's upper triangle zero, M
-    exactly symmetric, a zero weight pinned with no gradient."""
+    pulsar of 400 ECORR epochs and 30 red-noise modes; 1500 and 3000,
+    one pulsar and two chains: the 16- and 8-column panels; 3304, one
+    chain: the widest the forms take, their shared memory at the card's
+    limit), against the plain versions, bit-identical run to run, L's
+    upper triangle zero, M exactly symmetric, a zero weight pinned with
+    no gradient."""
     from pint_tpu_torch import linalg as tl
     from pint_tpu_torch import tolerances as tol
 
-    m2, p, c = 28, 4, 3
+    m2, p, c = (28, 4, 3) if nb < 1000 else (28, 1, 2 if nb <= 3000 else 1)
     fwd, bwd = tl._k5_shape(nb, m2)
     pre = _grams(card, nb, p, nb, m2, n=nb + 100)
     rng = np.random.default_rng(4)
@@ -365,6 +368,8 @@ def test_k5_wide_panel_and_width_limit(card):
 
     assert [tl.k5_wide_panel(nb) for nb in (145, 470, 1500, 3000, 4000)] \
         == [32, 32, 16, 8, 0]
+    # the widest nb (its card test above) and the first too wide
+    assert [tl.k5_wide_panel(nb) for nb in (3304, 3305)] == [8, 0]
     nb, m2 = 4000, 2
     z = torch.zeros(1, device=card, dtype=torch.float64)
     pre = tl.KronGram(

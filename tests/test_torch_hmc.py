@@ -41,12 +41,14 @@ from pint_tpu.models.builder import get_model
 from pint_tpu.simulation import (add_gwb, make_fake_pta,
                                  make_fake_toas_uniform, pta_injection_seed)
 from pint_tpu_torch import tolerances as tol
-from pint_tpu_torch.convert import pta_case_from_arrays
+from pint_tpu_torch.convert import PTA4_WIDE, load_arrays, \
+    pta_case_from_arrays
 from pint_tpu_torch.gw.common import CommonProcess
 from pint_tpu_torch.gw.hmc import GWBPosterior, run_nuts
 from pint_tpu_torch.iterate import iterate_fixed
-from pint_tpu_torch.linalg import (KronGram, kron_pulsar_bwd_plain,
-                                   kron_pulsar_plain, kron_pulsar_terms)
+from pint_tpu_torch.linalg import (KronGram, _k5_shape,
+                                   kron_pulsar_bwd_plain, kron_pulsar_plain,
+                                   kron_pulsar_terms)
 from tools.export_torch_hmc_case import replay_draws
 from tools.export_torch_pta_case import pta_case_arrays
 
@@ -220,11 +222,59 @@ def test_plain_k5_k5b_against_jax_one(small_posteriors):
     assert torch.equal(gf, gk)
 
 
-def _random_grams(seed, p=3, nb=5, m2=4, n=12):
+def _wide_stage(name):
+    """(grams, phi) of the per-pulsar stage at a wide width: the wide
+    PTA case's posterior (``pta4_wide.npz``, nb = 203) at its 4
+    reference theta, or a numpy-seeded gram of 2 pulsars at nb = 470,
+    m2 = 28 (400 ECORR epochs and 30 red-noise modes) with 2 chains of
+    weights in [1e-16, 1e-12]."""
+    if name == "pta4_wide":
+        arrays = load_arrays(PTA4_WIDE)
+        crn = CommonProcess(pta_case_from_arrays(arrays),
+                            nmodes=int(arrays["ref_nmodes"]), device=CPU)
+        post = GWBPosterior(crn)
+        return post.gram, post.phi_noise_at(
+            torch.as_tensor(arrays["ref_theta"]))
+    pre = _random_grams(470, p=2, nb=470, m2=28, n=570, scale=1e12)
+    rng = np.random.default_rng(471)
+    return pre, torch.as_tensor(10.0 ** rng.uniform(-16, -12, (2, 2, 470)))
+
+
+@pytest.mark.parametrize("name", ["pta4_wide", "nb470"])
+def test_plain_k5_k5b_wide_against_jax_one(name):
+    """The oracle of the wide forms' card tests: at the widths K5w and
+    K5bw take, the plain K5 outputs against JAX's ``one``, and the plain
+    K5b against ``jax.vjp`` of it and against autograd through the plain
+    forward, for random cotangents."""
+    pre, phi = _wide_stage(name)
+    assert _k5_shape(pre.g_uu.shape[-1], pre.g_ff.shape[-1]) \
+        == ("wide", "wide")
+    chi2, x, m, ld, L, X = kron_pulsar_plain(pre, phi)
+    g = [_np(t) for t in pre]
+    one = jax.vmap(jax.vmap(_jax_one, in_axes=(0,) * 8),
+                   in_axes=(None,) * 7 + (0,))
+    ref = one(*g, _np(phi))
+    for got, want, nm in zip((chi2, x, m, ld), ref, ("chi2", "x", "m",
+                                                     "ld")):
+        assert tol.vector_rel(_np(got), np.asarray(want)) \
+            <= tol.KRON_PULSAR_REL, nm
+    rng = np.random.default_rng(12)
+    cots = [rng.standard_normal(t.shape) for t in (chi2, x, m, ld)]
+    _, vjp = jax.vjp(lambda p: one(*g, p), _np(phi))
+    (gj,) = vjp(tuple(jnp.asarray(c) for c in cots))
+    ct = [torch.as_tensor(c) for c in cots]
+    gk = kron_pulsar_bwd_plain(phi, L, X, *ct)
+    assert tol.vector_rel(_np(gk), np.asarray(gj)) <= tol.KRON_PULSAR_REL
+    p_ = phi.clone().requires_grad_(True)
+    (ga,) = torch.autograd.grad(kron_pulsar_plain(pre, p_)[:4], p_, ct)
+    assert tol.vector_rel(_np(gk), _np(ga)) <= tol.KRON_PULSAR_REL
+
+
+def _random_grams(seed, p=3, nb=5, m2=4, n=12, scale=1.0):
     rng = np.random.default_rng(seed)
     t = rng.standard_normal((p, n, nb + m2 + 1))
-    w = rng.uniform(0.5, 2.0, (p, n))
-    gram = np.einsum("pni,pn,pnj->pij", t, w, t)
+    w = rng.uniform(0.5, 2.0, (p, n)) * scale
+    gram = np.matmul((t * w[..., None]).transpose(0, 2, 1), t)
     u, f = slice(0, nb), slice(nb, nb + m2)
     return KronGram(*(torch.as_tensor(a.copy()) for a in (
         gram[:, u, u], gram[:, u, f], gram[:, f, f], gram[:, u, -1],
