@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K10 and the wide forms K5w/K5bw, one nvcc per source, all started
+   (K1-K11 and the wide forms K5w/K5bw, one nvcc per source, all started
    together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
@@ -46,6 +46,30 @@ the closing ``{"ok": true, ...}`` line is not printed:
    phase); the library yardstick is the two matmuls Z diag(phihat) Z^T
    and V V^T on prescaled inputs, printed beside the same two with the
    phihat scaling inside the timed call;
+9a. ``crn dense``: the dense CRN path on the same array,
+    ``CommonProcess(pairs, nmodes=14, kron=False)``: ``lnlike`` at the
+    three points of ``pint_tpu_torch/data/crn_dense_answers.npz``
+    within 1e-10 of JAX's dense answers, the case's point under the
+    monopole and dipole ORFs within ``tolerances.GW_SINGULAR_REL``, the
+    16 x 16 ``lnlike_grid`` within 1e-10 of the case's JAX kron grid and
+    of the card's own kron grid; launches of K1, K3 and K11 during the
+    path (K11 > 0, K3 = 0: a dense instance builds no kron stacks); cold
+    and warm wall, grid points/s, peak memory, busy share, device time
+    per point against the capacity Cholesky's bound;
+9b. ``k11``: K11 (the dense capacity G0 + phi^-1) against its plain
+    version at the path's full width (4 points) and at P = 12, G = 512:
+    S per point relative to its largest entry and logdet phi within
+    ``tolerances.crn_capacity_limit`` of the GW blocks' kappa,
+    bit-identical run to run; its time beside the plain version, the
+    batched cholesky_ex + cholesky_inverse of the (G m2, P, P) blocks
+    and the bound; the capacity Cholesky's time and bound; ptxas's
+    report (a spill fails the phase);
+9c. ``kron append``: ``kron_gram_append`` of 25 rows to one pulsar
+    against K3 over the extended stack, within ``KERNEL_SUM_REL`` of
+    each entry's sum of |terms|, every other pulsar untouched; its time;
+9d. ``dd``: every ``pint_tpu_torch.dd`` function on 10^6 seeded CUDA
+    inputs, bit-identical to the same calls on CPU tensors; add, mul and
+    div timed;
 10. the Bayesian GWB posterior on the same array
     (``GWBPosterior(CommonProcess(pairs, nmodes=14))``, 138 dimensions:
     the GWB's (log10 A, gamma) and every pulsar's TNREDAMP, TNREDGAM):
@@ -192,7 +216,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
     K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
-    stream for K10; K10's times at the fold's shape), error
+    stream for K10, the dense CRN path for K11; K10's times at the
+    fold's shape, K11's at the path's 4 points), error
     against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
     computes the same function.
@@ -314,25 +339,28 @@ def kernel_ms(fn, reps=50):
     return queued_ms(fn, reps), f"events, queued (profiler: {prof_ms!r} ms)"
 
 
-def stage_us(fn, reps=20):
-    """{kernel name: mean device µs per call of ``fn``} from the
-    profiler (CUPTI): how a launcher call of several kernels splits
-    between them.  Printed beside the events' time of the call, which
-    stays the measure (see :func:`kernel_ms`)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key.split("(")[0]: e.self_device_time_total / reps
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+def trace_kernels(prof, label):
+    """({kernel name: [device µs summed, launches]}, span µs) from the
+    kernel records of ``prof``'s exported chrome trace (CUPTI's activity
+    records of every kernel the card ran in the window, whoever launched
+    it); the span runs from the first kernel's start to the last one's
+    end.  The sleep kernel that queues a window is left out."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{label}_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    os.remove(path)
+    by_name, lo, hi = {}, float("inf"), float("-inf")
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel" \
+                and "spin_kernel" not in e["name"]:
+            tot = by_name.setdefault(e["name"], [0.0, 0])
+            tot[0] += float(e["dur"])
+            tot[1] += 1
+            lo = min(lo, float(e["ts"]))
+            hi = max(hi, float(e["ts"]) + float(e["dur"]))
+    return by_name, max(hi - lo, 0.0)
 
 
 def bound_ms(n_bytes, n_flops, flops_per_s=FP64_FLOPS):
@@ -360,12 +388,12 @@ def phase_build():
     from pint_tpu_torch.fixedpoint import K1
     from pint_tpu_torch.gw.hmc import K6
     from pint_tpu_torch.gw.os import K4
-    from pint_tpu_torch.linalg import K2, K3, K5, K7, K8, K10
+    from pint_tpu_torch.linalg import K2, K3, K5, K7, K8, K10, K11
     from pint_tpu_torch.sampler import K9
 
     t0 = time.time()
     libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7,
-                                           K8, K9, K10)])
+                                           K8, K9, K10, K11)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -575,19 +603,8 @@ def trace_breakdown(fn, wall_s, label, groups):
         t0 = time.time()
         fn()
         wall = time.time() - t0
-    os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, f"{label}_trace.json")
     t0 = time.time()
-    prof.export_chrome_trace(path)
-    with open(path) as fh:
-        events = json.load(fh)["traceEvents"]
-    os.remove(path)
-    by_name = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            tot = by_name.setdefault(e["name"], [0.0, 0])
-            tot[0] += float(e["dur"])
-            tot[1] += 1
+    by_name, _ = trace_kernels(prof, label)
     dev_us = sum(v[0] for v in by_name.values())
     rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     with open(os.path.join(OUT_DIR, f"{label}_profile.txt"), "w") as fh:
@@ -881,7 +898,7 @@ def phase_gw(arrays, pairs):
         f"{pm}^2 and one solve at the fp64 tensor-core peak)")
     return {"launches": launches, "ost": ost, "cold": cold, "warm": warm,
             "grid_points_per_s": n_pts / t_grid, "peak_bytes": peak,
-            "grid_busy": busy}
+            "grid_busy": busy, "surf": surf}
 
 
 def _check_sum_bound(name, got, again, plain, abs_sum):
@@ -1499,8 +1516,7 @@ def phase_k6():
            "bound_ms": b, "bound_by": by, "timed_by": how,
            "max_abs_err": float(torch.max(torch.abs(sk.x - sp.x))),
            "launches_per_draw": n_leap + 1,
-           "per_call_with_enqueue_ms": cuda_ms(one, reps=20),
-           "stages_us": stage_us(one)}
+           "per_call_with_enqueue_ms": cuda_ms(one, reps=20)}
     out.update(build_report(hmc.K6, ("nuts_pre0_kernel",
                                      "nuts_post_pre_kernel",
                                      "nuts_post_end_kernel")))
@@ -1974,9 +1990,7 @@ def phase_k8(g):
                "max_abs_err": float(torch.max(torch.abs(a - p))),
                "rel_of_sum_r2n": rel, "timed_by": how, "G": gn, "N": n,
                "K": k, "per_call_with_enqueue_ms": cuda_ms(
-                   partial(tl.woodbury_chi2_pre_cuda, *args), reps=20),
-               "stages_us": stage_us(partial(tl.woodbury_chi2_pre_cuda,
-                                             *args))}
+                   partial(tl.woodbury_chi2_pre_cuda, *args), reps=20)}
         out[label] = row
         log(f"k8 {label} times: " + json.dumps(row))
     rep = build_report(tl.K8, ("woodbury_rhs_kernel",
@@ -3034,8 +3048,6 @@ def phase_k10(st_gls, st_wls):
         St = S0.clone()
         row["ms"], row["timed_by"] = kernel_ms(
             partial(tl.stream_moments_cuda, St, A, w, c0))
-        row["stages_us"] = stage_us(
-            partial(tl.stream_moments_cuda, St, A, w, c0))
         # ~400 small kernels a call at the capture's shape: events only
         # (the profiler's key_averages over 10^4 launches takes minutes)
         row["plain_ms"] = queued_ms(
@@ -3059,6 +3071,389 @@ def phase_k10(st_gls, st_wls):
                                     if not k.startswith(("capture",
                                                          "fold"))}))
     return out
+
+
+def phase_crn_dense(arrays, pairs, kron_surf):
+    """The dense CRN path on the 68-pulsar case: ``CommonProcess(pairs,
+    nmodes=14, kron=False)`` on the card, ``lnlike`` at the exported
+    points held to JAX's dense answers (Hellings-Downs, and the case's
+    point under the singular ORFs), the 16 x 16 ``lnlike_grid`` held to
+    the case's JAX kron grid and to the card's own kron grid; K11 runs,
+    K3 does not (a dense instance builds no kron stacks)."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import CRN_DENSE_ANSWERS, load_arrays
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.linalg import K3, K11
+
+    ref = load_arrays(CRN_DENSE_ANSWERS)
+    nmodes = int(ref["ref_nmodes"])
+    pts = [(float(a), float(g)) for a, g in ref["ref_points"]]
+    grid_a, grid_g = arrays["ref_grid_log10_amp"], arrays["ref_grid_gamma"]
+    n_pts = grid_a.size * grid_g.size
+    kernels = {"K1": K1, "K3": K3, "K11": K11}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def run_path(crn):
+        lnl, t_lnl = timed(lambda: [crn.lnlike(a, g) for a, g in pts])
+        surf, t_grid = timed(lambda: crn.lnlike_grid(grid_a, grid_g))
+        return (lnl, surf), {"lnlike_3_s": t_lnl,
+                             "lnlike_grid_256_s": t_grid}
+
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    crn, t_build = timed(lambda: CommonProcess(
+        pairs, nmodes=nmodes, kron=False, device="cuda"))
+    (lnl, surf), cold = run_path(crn)
+    launches = {n: k.launches for n, k in kernels.items()}
+    cold["build_s"] = t_build
+    log(f"crn dense: launches during the path {launches}")
+    sing = {}
+    for orf in ("monopole", "dipole"):
+        sib = CommonProcess(nmodes=nmodes, orf=orf, kron=False,
+                            device="cuda", _prebuilt=(
+                                crn.data, crn.pos, crn.freqs, crn.df, None))
+        sing[orf] = sib.lnlike(*pts[0])
+        del sib
+    torch.cuda.empty_cache()
+    errs = {"hd": max(abs(x / r - 1) for x, r in zip(
+                lnl, ref["ref_hd_dense"])),
+            "monopole": abs(sing["monopole"]
+                            / float(ref["ref_monopole_dense"][0]) - 1),
+            "dipole": abs(sing["dipole"]
+                          / float(ref["ref_dipole_dense"][0]) - 1),
+            "grid_vs_jax_kron": float(np.max(np.abs(
+                surf / arrays["ref_grid_lnlike"] - 1))),
+            "grid_vs_card_kron": float(np.max(np.abs(surf / kron_surf - 1)))}
+    tols = {"hd": tol.GW_LNLIKE_REL, "monopole": tol.GW_SINGULAR_REL,
+            "dipole": tol.GW_SINGULAR_REL,
+            "grid_vs_jax_kron": tol.GW_LNLIKE_REL,
+            "grid_vs_card_kron": tol.GW_LNLIKE_REL}
+    k_cols = crn.dense.gram.shape[0]
+    log(f"crn dense: K {k_cols}, N {crn.n_toa_total}, {crn.n_pulsars} "
+        f"pulsars; lnlike {lnl!r} (JAX dense "
+        f"{ref['ref_hd_dense'].tolist()!r}); monopole {sing['monopole']!r}"
+        f", dipole {sing['dipole']!r}; observed relative errors "
+        + json.dumps(errs) + " tolerances " + json.dumps(tols))
+    bad = [k for k in errs if not errs[k] <= tols[k]]
+    if bad:
+        raise AssertionError(f"the dense CRN path disagrees on {bad}")
+    if not (launches["K11"] > 0 and launches["K3"] == 0):
+        raise AssertionError(f"the dense path's kernels: {launches}")
+    (_, _), warm = run_path(crn)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    _, t_grid = timed(lambda: crn.lnlike_grid(grid_a, grid_g))
+    peak = torch.cuda.max_memory_allocated()
+    log("crn dense: wall time cold " + json.dumps(cold) + " warm "
+        + json.dumps(warm))
+    log(f"crn dense: lnlike_grid {n_pts} points in {t_grid:.4f} s warm = "
+        f"{n_pts / t_grid:.1f} points/s, {crn.grid_chunk()} points per "
+        f"batch; peak device memory {peak / 2**30:.3f} GiB during the "
+        f"grid ({base_mem / 2**30:.3f} GiB held before it)")
+    busy, dev_ms, _ = trace_breakdown(
+        lambda: crn.lnlike_grid(grid_a, grid_g), t_grid, "crn_dense_grid",
+        {"K11": ["crn_capacity", "crn_logdet"],
+         "cuSOLVER potrf": ["getrf_wo_pivot", "syrk", "potrf"],
+         "solve": ["trsv", "trsm"], "ATen": ["at::native"]})
+    # one point's least work: the capacity's Cholesky and one solve at
+    # the tensor-core peak, S and L each written once
+    b, by = bound_ms(8 * 2 * k_cols**2, k_cols**3 / 3 + 2 * k_cols**2,
+                     FP64_TC_FLOPS)
+    log(f"crn dense: grid device time per point {dev_ms / n_pts!r} ms (all "
+        f"kernels of one warm grid), bound {b!r} ms ({by}; the Cholesky of "
+        f"{k_cols}^2 and one solve at the fp64 tensor-core peak)")
+    return {"launches": launches, "crn": crn, "cold": cold, "warm": warm,
+            "grid_points_per_s": n_pts / t_grid, "peak_bytes": peak,
+            "grid_busy": busy}
+
+
+def k11_synthetic(p, m2, n_noise, g, seed=11):
+    """(gram, phi_noise, orf, phi_gw) of a random array of ``p`` pulsars
+    on the card: a Hellings-Downs ORF of random sky positions, ``n_noise``
+    noise columns a pulsar (its last at the offset's 1e30), an SPD
+    gram."""
+    import torch
+
+    from pint_tpu_torch.gw.orf import orf_matrix
+
+    rng = np.random.default_rng(seed)
+    pos = rng.standard_normal((p, 3))
+    pos /= np.linalg.norm(pos, axis=1)[:, None]
+    kn = p * n_noise
+    k = kn + p * m2
+    a = rng.standard_normal((2 * k, k))
+    phi_noise = 10.0 ** rng.uniform(-16.0, -12.0, kn)
+    phi_noise[n_noise - 1::n_noise] = 1e30
+    return tuple(torch.tensor(x, device="cuda") for x in (
+        (a.T @ a) * 1e14, phi_noise, orf_matrix(pos, "hd"),
+        10.0 ** rng.uniform(-22.0, -14.0, (g, m2))))
+
+
+def phase_k11(crn):
+    """K11 against its plain version on the card at the dense path's
+    full width (4 points: the exported three and the grid's corner of
+    least GW power, where phi^-1 is largest) and at a small-P,
+    many-point shape: S per point relative to its largest entry and
+    logdet phi within ``tolerances.crn_capacity_limit`` of the blocks'
+    kappa, bit-identical run to run; times beside the plain version, the
+    library yardstick (batched cholesky_ex + cholesky_inverse on the
+    (G m2, P, P) blocks) and the bound; the capacity Cholesky's time."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.linalg import (K11, KronPhi, cho_factor,
+                                       crn_capacity_cuda, crn_capacity_plain,
+                                       kron_gw_blocks)
+
+    dd = crn.dense
+    la = torch.tensor([-13.7, -14.4, -13.9, -15.0], dtype=torch.float64,
+                      device="cuda")
+    ga = torch.tensor([13 / 3, 3.0, 5.5, 6.0], dtype=torch.float64,
+                      device="cuda")
+    cases = {"path G4": (dd.gram, dd.phi_noise, dd.orf,
+                         crn._phi_gw(la, ga)),
+             "small P": k11_synthetic(12, 10, 25, 512)}
+    out = {}
+    for label, args in cases.items():
+        gram, phi_noise, orf, phi_gw = args
+        g, m2 = phi_gw.shape
+        p, kn, k = orf.shape[0], phi_noise.shape[0], gram.shape[0]
+        s1, l1 = crn_capacity_cuda(*args)
+        s2, l2 = crn_capacity_cuda(*args)
+        sp, lp = crn_capacity_plain(*args)
+        torch.cuda.synchronize()
+        same = _bits_equal((s1, l1), (s2, l2))
+        del s2, l2
+        err_s = [float(torch.max(torch.abs(s1[i] - sp[i]))
+                       / torch.max(torch.abs(sp[i]))) for i in range(g)]
+        err_ld = [float(torch.abs(l1[i] - lp[i])
+                        / (k + torch.abs(lp[i]))) for i in range(g)]
+        kappa = tol.crn_block_kappa(orf.cpu().numpy(),
+                                    phi_gw.cpu().numpy())
+        lim = tol.crn_capacity_limit(p, kappa)
+        row = {"G": g, "K": k, "kn": kn, "P": p, "m2": m2,
+               "run_to_run": same, "max_S_rel": max(err_s),
+               "max_logdet_rel": max(err_ld), "limit": lim, "kappa": kappa,
+               "max_abs_err": float(torch.max(torch.abs(s1 - sp)))}
+        log(f"k11 {label}: " + json.dumps(row))
+        if not (same and max(err_s) <= lim and max(err_ld) <= lim):
+            raise AssertionError(f"K11 disagrees with its plain version at "
+                                 f"{label}")
+        del sp
+        row["ms"], row["timed_by"] = kernel_ms(
+            lambda: crn_capacity_cuda(*args), reps=20)
+        row["plain_ms"] = queued_ms(lambda: crn_capacity_plain(*args),
+                                    reps=3, warmup=1)
+        blocks = kron_gw_blocks(KronPhi(orf=orf, phi_gw=phi_gw,
+                                        phi_noise=None)).reshape(-1, p, p)
+        # events only: the batched inverse is a loop of small kernels,
+        # and the profiler's summary over them takes minutes
+        row["library_ms"] = queued_ms(lambda: torch.cholesky_inverse(
+            torch.linalg.cholesky_ex(blocks)[0]), reps=20)
+        # G0 read once, S written once; the blocks' factor, inverse and
+        # product, scalar fp64 in shared memory
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            8 * ((1 + g) * k * k + kn + p * p + g * m2 + g),
+            g * m2 * p**3, FP64_FLOPS)
+        row["shared_bytes"] = K11.call("crn_capacity_smem", p)
+        row["blocks"] = g * (m2 + -(-kn // p))
+        if label == "path G4":
+            # one point's, as the path factors them
+            row["capacity_cholesky_ms"] = queued_ms(
+                lambda: cho_factor(s1[0]), reps=10)
+            row["capacity_cholesky_bound_ms"], row["capacity_cholesky_by"] = \
+                bound_ms(8 * k * (k + 1), k**3 / 3, FP64_TC_FLOPS)
+        del s1
+        torch.cuda.empty_cache()
+        out[label] = row
+        log(f"k11 {label} times: " + json.dumps(row))
+    rep = build_report(K11, ("crn_capacity_kernel", "crn_logdet_kernel"))
+    log("k11 ptxas: " + json.dumps(rep))
+    out.update(rep)
+    return out
+
+
+#: (name, call(module, x, y)) for every function of pint_tpu_torch.dd on
+#: two dd inputs
+DD_CASES = [
+    ("two_sum", lambda m, x, y: m.two_sum(x.hi, y.hi)),
+    ("quick_two_sum", lambda m, x, y: m.quick_two_sum(x.hi, y.hi)),
+    ("split", lambda m, x, y: m.split(x.hi)),
+    ("two_prod", lambda m, x, y: m.two_prod(x.hi, y.hi)),
+    ("two_prod_lo", lambda m, x, y: m.two_prod(x.lo, y.hi)),
+    ("from_f64", lambda m, x, y: m.from_f64(x.hi)),
+    ("from_sum", lambda m, x, y: m.from_sum(x.hi, y.lo)),
+    ("normalize", lambda m, x, y: m.normalize(x.hi, y.hi)),
+    ("to_f64", lambda m, x, y: m.to_f64(x)),
+    ("add", lambda m, x, y: m.add(x, y)),
+    ("add_f64", lambda m, x, y: m.add_f64(x, y.hi)),
+    ("sub", lambda m, x, y: m.sub(x, y)),
+    ("sub_f64", lambda m, x, y: m.sub_f64(x, y.hi)),
+    ("mul", lambda m, x, y: m.mul(x, y)),
+    ("mul_f64", lambda m, x, y: m.mul_f64(x, y.hi)),
+    ("div", lambda m, x, y: m.div(x, y)),
+    ("neg", lambda m, x, y: m.neg(x)),
+    ("abs_", lambda m, x, y: m.abs_(x)),
+    ("sqr", lambda m, x, y: m.sqr(y)),
+    ("lt", lambda m, x, y: m.lt(x, y)),
+    ("le", lambda m, x, y: m.le(x, y)),
+    ("gt", lambda m, x, y: m.gt(x, y)),
+    ("ge", lambda m, x, y: m.ge(x, y)),
+    ("round_nearest", lambda m, x, y: m.round_nearest(x)),
+    ("split_int_frac", lambda m, x, y: m.split_int_frac(x)),
+    ("floor_", lambda m, x, y: m.floor_(x)),
+    ("horner", lambda m, x, y: m.horner(m.mul_f64(y, 1e-3),
+                                        [x, y, m.from_f64(0.25 * y.hi)])),
+    ("taylor_horner", lambda m, x, y: m.taylor_horner(
+        m.mul_f64(y, 1e3), [m.from_f64(0.0 * y.hi),
+                            m.from_f64(218.81184 + 0.0 * y.hi),
+                            m.from_f64(-4.083e-16 + 0.0 * y.hi),
+                            m.from_f64(1e-26 + 0.0 * y.hi)])),
+    ("operators", lambda m, x, y: ((x + y) * y - x / y, 2.0 - x, -x)),
+]
+
+
+def dd_inputs(n, seed, device):
+    """Two dd tensors of ``n`` seeded longdoubles (mixed scales, with
+    half-integer and integer edge cases) on ``device``."""
+    from pint_tpu_torch import dd
+
+    rng = np.random.default_rng(seed)
+
+    def rand_ld(scale):
+        a = rng.uniform(-1, 1, n).astype(np.longdouble) * np.longdouble(scale)
+        return a + rng.uniform(-1, 1, n).astype(np.longdouble) \
+            * np.longdouble(2.0) ** -40
+
+    x, y = rand_ld(4e11), rand_ld(1e3)
+    x[:6] = [123456789.5, -0.5, 0.5, 7.0, -3.0, 2.0**52]
+    return (dd.from_longdouble(x, device), dd.from_longdouble(y, device))
+
+
+def dd_mismatches(n=10**6, seed=15):
+    """[names of DD_CASES whose outputs on CUDA tensors differ in any bit
+    from the same calls on CPU tensors], at ``n`` seeded inputs."""
+    import torch
+
+    from pint_tpu_torch import dd
+
+    xc, yc = dd_inputs(n, seed, "cpu")
+    xg, yg = dd_inputs(n, seed, "cuda")
+
+    def flat(out):
+        if isinstance(out, (tuple, list)):
+            return [t for o in out for t in flat(o)]
+        return [out]
+
+    bad = []
+    for name, fn in DD_CASES:
+        got = flat(fn(dd, xg, yg))
+        ref = flat(fn(dd, xc, yc))
+        for a, b in zip(got, ref):
+            a = a.cpu()
+            if a.dtype == torch.float64:
+                a, b = a.view(torch.int64), b.view(torch.int64)
+            if not torch.equal(a, b):
+                bad.append(name)
+                break
+    return bad
+
+
+def phase_dd():
+    """Every dd function on 10^6 seeded CUDA inputs, bit-identical to the
+    same calls on CPU tensors (an FMA contraction would change
+    two_prod's error term); the time of add, mul and div on the card."""
+    import torch
+
+    from pint_tpu_torch import dd
+
+    bad = dd_mismatches()
+    log(f"dd: {len(DD_CASES)} calls on 10^6 CUDA inputs, bit-identical to "
+        f"the CPU: {not bad} (differ: {bad})")
+    if bad:
+        raise AssertionError(f"dd on the card differs from the CPU in {bad}")
+    x, y = dd_inputs(10**6, 16, "cuda")
+    out = {}
+    for name, fn, n_ops in (("add", dd.add, 20), ("mul", dd.mul, 24),
+                            ("div", dd.div, 70)):
+        ms, how = kernel_ms(lambda: fn(x, y))
+        # four doubles in, two out; its separately rounded operations
+        b, by = bound_ms(48 * 10**6, n_ops * 10**6)
+        out[name] = {"ms": ms, "bound_ms": b, "bound_by": by,
+                     "timed_by": how}
+    log("dd times at 10^6 elements: " + json.dumps(out))
+    return out
+
+
+def phase_kron_append(ost):
+    """``kron_gram_append``: 25 rows appended to one pulsar of the case
+    against K3 over the extended stack, within ``KERNEL_SUM_REL`` of
+    each entry's sum of |terms|; every other pulsar's blocks untouched;
+    its time and bound."""
+    import dataclasses
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.linalg import (KronGram, _gram_split,
+                                       kron_gram_append, kron_gram_cuda,
+                                       kron_gram_plain, ragged_stack)
+
+    data, pre = ost.data, ost.kron_data.gram
+    a, n_new = len(data) // 2, 25
+    rng = np.random.default_rng(25)
+    d = data[a]
+    nb, m2, nb_max = d.U.shape[1], d.F.shape[1], pre.g_uu.shape[-1]
+    sig = rng.choice(d.sigma, n_new)
+    new = (rng.standard_normal(n_new) * sig, sig,
+           rng.standard_normal((n_new, nb)), rng.standard_normal((n_new, m2)))
+    ext = [(x.r, x.sigma, x.U, x.F) if i != a else tuple(
+        np.concatenate([o, q]) for o, q in zip((x.r, x.sigma, x.U, x.F), new))
+        for i, x in enumerate(data)]
+    st = ragged_stack(*(list(c) for c in zip(*ext)), "cuda")
+    full = _gram_split(*kron_gram_cuda(st), st.nb_max)
+    gabs, _ = kron_gram_plain(dataclasses.replace(st, t=st.t.abs()))
+    ld_abs = torch.stack([torch.sum(torch.abs(torch.log(s**2)))
+                          for s in torch.split(st.sigma, st.n_rows)])
+    abs_gram = _gram_split(gabs, ld_abs, st.nb_max)
+    u_rows = np.zeros((n_new, nb_max))
+    u_rows[:, :nb] = new[2]
+    rows = tuple(torch.tensor(x, device="cuda")
+                 for x in (new[0], new[1], u_rows, new[3]))
+    got = kron_gram_append(pre, a, len(d.r), *rows)
+    torch.cuda.synchronize()
+    ratio = {}
+    others = [i for i in range(len(data)) if i != a]
+    for name, g, f, s, p in zip(KronGram._fields, got, full, abs_gram, pre):
+        ratio[name] = float(torch.max(torch.abs(g - f)
+                                      / torch.clamp(s, min=1e-300)))
+        if not torch.equal(g[others], p[others]):
+            raise AssertionError(f"kron_gram_append changed another "
+                                 f"pulsar's {name}")
+    ms, how = kernel_ms(lambda: kron_gram_append(pre, a, len(d.r), *rows))
+    # reads every block of the grams and the rows, writes the grams
+    nbytes = 8 * (2 * sum(t.numel() for t in pre)
+                  + sum(t.numel() for t in rows))
+    w = nb_max + m2 + 1
+    b, by = bound_ms(nbytes, n_new * w * (w + 1) + 4 * n_new)
+    row = {"rows": n_new, "pulsar": a, "max_diff_over_sum_abs": ratio,
+           "limit": tol.KERNEL_SUM_REL, "ms": ms, "timed_by": how,
+           "bound_ms": b, "bound_by": by}
+    log("kron append: " + json.dumps(row))
+    if not all(v <= tol.KERNEL_SUM_REL for v in ratio.values()):
+        raise AssertionError("kron_gram_append disagrees with K3 over the "
+                             "extended stack")
+    return row
 
 
 def gw_row(name, source, replaces, launches, m):
@@ -3200,6 +3595,20 @@ def main():
                        "pint_tpu/gw/os.py:86", gw["launches"]["K4"], k4)]
         else:
             table = None
+        crn_d = run("crn dense", phase_crn_dense, pta_arrays, pairs,
+                    gw["surf"])
+        k11 = run("k11", phase_k11, crn_d["crn"]) if crn_d else None
+        if table is not None and k11 is not None:
+            table.append(gw_row("crn_capacity", "crn_capacity.cu",
+                                "pint_tpu/gw/common.py:186",
+                                crn_d["launches"]["K11"], k11["path G4"]))
+        else:
+            table = None
+        crn_d = None
+        run("kron append", phase_kron_append, gw["ost"])
+    else:
+        table = None
+    run("dd", phase_dd)
     hmc = run("hmc", phase_hmc, pta_arrays, pairs)
     if hmc is not None:
         run("hmc parity", phase_hmc_parity, hmc["post"],

@@ -67,6 +67,10 @@ PN_ANSWERS = Path(__file__).resolve().parent / "data" / "pn_answers.npz"
 #: a 4-pulsar array with 100 red-noise modes (capacities ~203 wide),
 #: with the JAX CPU answers of its likelihood and posterior
 PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"
+#: the JAX CPU answers of the dense (kron=False) likelihood on the
+#: pta68_500 array (``tools/export_torch_crn_dense_case.py``)
+CRN_DENSE_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "crn_dense_answers.npz"
 
 #: component class -> constructor arguments the spec may carry
 _COMPONENTS = {

@@ -1,5 +1,5 @@
 """Common red process (CRN/GWB) likelihood across a pulsar array
-(pint_tpu gw/common.py), kron-structured path.
+(pint_tpu gw/common.py), kron-structured and dense.
 
 Over the stacked residuals of the array the covariance is
 
@@ -13,7 +13,11 @@ two-level Woodbury of :mod:`pint_tpu_torch.linalg`: per-pulsar grams
 (kernel K3 over a ragged stack, built once), a batched per-pulsar
 Cholesky, and one (P m2, P m2) LU per (log10 A, gamma) point.
 
-The dense CRN path of the reference (``kron=False``) is not ported.
+``kron=False`` takes the reference's dense path instead, its oracle for
+the kron path: the stacked (N_tot, K) basis U_full, its gram
+G0 = U_full^T N^-1 U_full held once, and per point the capacity
+G0 + phi^-1 of the dense (K, K) prior (kernel K11 on CUDA), one
+Cholesky (cuSOLVER) and one solve.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from pint_tpu_torch import resolve_device
 from pint_tpu_torch.fitter import FitDivergedError
 from pint_tpu_torch.gw.orf import orf_matrix, pulsar_positions
 from pint_tpu_torch.linalg import (KronGram, KronPhi, RaggedStack,
+                                   cho_factor, cho_solve, crn_capacity,
                                    kron_gram_precompute, kron_gw_terms,
                                    kron_pulsar_terms, ragged_stack,
                                    su_to_dense)
@@ -174,31 +179,43 @@ def kron_data(data: List[PulsarGWData], orf, device) -> KronData:
                                         device=device))
 
 
+class DenseData(NamedTuple):
+    """What the dense path holds once: the gram G0 = U_full^T N^-1 U_full
+    (K, K), b = U_full^T N^-1 r (K,), r^T N^-1 r, sum log sigma^2, the
+    stacked noise weights (kn,) and the ORF."""
+
+    gram: torch.Tensor
+    b: torch.Tensor
+    rr: torch.Tensor
+    ld_white: torch.Tensor
+    phi_noise: torch.Tensor
+    orf: torch.Tensor
+
+
 class CommonProcess:
     """The PTA likelihood with an ORF-correlated common power-law
     process in (log10 A, gamma); timing parameters marginalized through
     their design columns (``marginalize_timing``).
 
-    ``CommonProcess(pairs, nmodes=10, orf="hd", device=None)``, pairs
-    ``[(model, toas, tzr), ...]``; runs on CUDA unless ``device`` names
-    another device."""
+    ``CommonProcess(pairs, nmodes=10, orf="hd", kron=True, device=None)``,
+    pairs ``[(model, toas, tzr), ...]``; runs on CUDA unless ``device``
+    names another device.  ``kron=False`` takes the dense path.  Each
+    path's arrays are built on first use: a dense instance builds no
+    kron stacks (no K3), a kron one no U_full."""
 
     def __init__(self, pairs=None, *, nmodes=10, orf="hd", tspan_s=None,
                  marginalize_timing=True, kron=True, device=None,
                  _prebuilt=None):
-        if not kron:
-            raise NotImplementedError(
-                "the dense CRN path (kron=False) is not ported")
         self.device = resolve_device(device)
         if _prebuilt is not None:
-            # (data, pos, freqs, df, kron data) of a sibling engine
+            # (data, pos, freqs, df, kron data or None) of a sibling
             data, pos, freqs, df, kd = _prebuilt
             resids = None
         else:
             data, pos, freqs, df, resids = build_pulsar_data(
                 pairs, nmodes=nmodes, tspan_s=tspan_s,
                 marginalize_timing=marginalize_timing, device=self.device)
-            kd = kron_data(data, orf_matrix(pos, orf), self.device)
+            kd = None
         self.data = data
         #: per-pulsar Residuals (their prepared models give the noise
         #: weights as functions of the values); None on the _prebuilt path
@@ -208,11 +225,65 @@ class CommonProcess:
         self.nmodes = int(nmodes)
         self.pos = pos
         self.orf_kind = orf
-        self.freqs = torch.as_tensor(np.asarray(freqs), device=self.device)
+        self.orf = orf_matrix(pos, orf)
+        self.freqs = torch.as_tensor(freqs, dtype=torch.float64,
+                                     device=self.device)
         self.df = float(df)
         self.n_toa_total = int(sum(len(d.r) for d in data))
-        self.kron_data = kd
+        self.kron = bool(kron)
+        self._kron_data = kd
         self._pulsar_terms = None
+        self._U_full = None
+        self._dense = None
+
+    @property
+    def kron_data(self) -> KronData:
+        """The kron path's ragged stack and grams (K3 on CUDA), built on
+        first use."""
+        if self._kron_data is None:
+            self._kron_data = kron_data(self.data, self.orf, self.device)
+        return self._kron_data
+
+    @property
+    def U_full(self) -> torch.Tensor:
+        """The dense stacked (N_tot, K) basis on the device, built on
+        first use: each pulsar's own columns block-diagonal, then its GW
+        Fourier columns at ``kn + a m2`` (pint_tpu gw/common.py:335)."""
+        if self._U_full is None:
+            kn = sum(d.U.shape[1] for d in self.data)
+            m2 = 2 * self.nmodes
+            U = torch.zeros((self.n_toa_total, kn + self.n_pulsars * m2),
+                            dtype=torch.float64, device=self.device)
+            row = col = 0
+            for a, d in enumerate(self.data):
+                n, nb = d.U.shape
+                U[row:row + n, col:col + nb] = torch.as_tensor(d.U)
+                U[row:row + n, kn + a * m2:kn + (a + 1) * m2] = \
+                    torch.as_tensor(d.F)
+                row += n
+                col += nb
+            self._U_full = U
+        return self._U_full
+
+    @property
+    def dense(self) -> DenseData:
+        """The dense path's :class:`DenseData`, formed once (one matmul
+        for the gram, as the reference leaves it to XLA)."""
+        if self._dense is None:
+            def cat(name):
+                return torch.as_tensor(np.concatenate(
+                    [getattr(d, name) for d in self.data]),
+                    device=self.device)
+            r, nvec = cat("r"), cat("sigma") ** 2
+            U = self.U_full
+            ninv_r = r / nvec
+            self._dense = DenseData(
+                gram=(U.T * (1.0 / nvec)[None, :]) @ U, b=U.T @ ninv_r,
+                rr=torch.sum(r * ninv_r), ld_white=torch.sum(torch.log(nvec)),
+                phi_noise=cat("phi"),
+                orf=torch.as_tensor(np.asarray(self.orf, np.float64),
+                                    device=self.device))
+        return self._dense
 
     @property
     def pulsar_terms(self):
@@ -223,16 +294,40 @@ class CommonProcess:
                 self.kron_data.gram, self.kron_data.phi_noise)
         return self._pulsar_terms
 
-    def _lnlike_points(self, log10_amps, gammas):
-        """(n,) log-likelihoods at n (log10 A, gamma) points (tensors)."""
+    def _phi_gw(self, log10_amps, gammas):
+        return gwb_phi(self.freqs, 10.0 ** log10_amps[:, None],
+                       gammas[:, None], self.df)
+
+    def _chi2_logdet_kron(self, log10_amps, gammas):
         chi2_d, x, m, ld_d = self.pulsar_terms
-        phi_gw = gwb_phi(self.freqs, 10.0 ** log10_amps[:, None],
-                         gammas[:, None], self.df)
-        kp = KronPhi(orf=self.kron_data.orf, phi_gw=phi_gw,
+        kp = KronPhi(orf=self.kron_data.orf,
+                     phi_gw=self._phi_gw(log10_amps, gammas),
                      phi_noise=self.kron_data.phi_noise)
         corr, ld_t = kron_gw_terms(x, m, kp)
-        chi2 = torch.sum(chi2_d) - corr
-        logdet = torch.sum(ld_d) + ld_t
+        return torch.sum(chi2_d) - corr, torch.sum(ld_d) + ld_t
+
+    def _chi2_logdet_dense(self, log10_amps, gammas):
+        """The reference's dense Woodbury (pint_tpu gw/common.py:186 and
+        linalg.py:288) at every point: K11's capacity matrices, then per
+        point one Cholesky and one solve against b.  One point at a time:
+        the libraries' batched Cholesky and solve are built for small
+        matrices (at K = 6188 the batched solve fails on the card)."""
+        dd = self.dense
+        S, ld_phi = crn_capacity(dd.gram, dd.phi_noise, dd.orf,
+                                 self._phi_gw(log10_amps, gammas))
+        chi2, ld_cap = [], []
+        for s in S:
+            L = cho_factor(s)
+            x = cho_solve(L, dd.b)
+            chi2.append(dd.rr - torch.sum(dd.b * x))
+            ld_cap.append(torch.sum(torch.log(torch.diagonal(L))))
+        return (torch.stack(chi2),
+                dd.ld_white + ld_phi + 2.0 * torch.stack(ld_cap))
+
+    def _lnlike_points(self, log10_amps, gammas):
+        """(n,) log-likelihoods at n (log10 A, gamma) points (tensors)."""
+        chi2, logdet = (self._chi2_logdet_kron if self.kron
+                        else self._chi2_logdet_dense)(log10_amps, gammas)
         return (-0.5 * (chi2 + logdet)
                 - 0.5 * self.n_toa_total * math.log(2.0 * math.pi))
 
@@ -248,11 +343,16 @@ class CommonProcess:
         return out
 
     def grid_chunk(self) -> int:
-        """Grid points per device batch under :data:`GRID_MEM_BYTES`:
-        each point holds its (P m2)^2 system twice (the matrix and its
-        LU) plus a third copy's headroom."""
-        pm = self.n_pulsars * 2 * self.nmodes
-        return max(1, GRID_MEM_BYTES // (3 * pm * pm * 8))
+        """Grid points per device batch under :data:`GRID_MEM_BYTES`: each
+        point is counted twice (kron: the (P m2)^2 matrix and its LU;
+        dense: the (K, K) capacity and its Cholesky factor, one factor
+        alive at a time) plus a third copy's headroom."""
+        if self.kron:
+            n = self.n_pulsars * 2 * self.nmodes
+        else:
+            n = sum(d.U.shape[1] for d in self.data) \
+                + self.n_pulsars * 2 * self.nmodes
+        return max(1, GRID_MEM_BYTES // (3 * n * n * 8))
 
     def lnlike_grid(self, log10_amps, gammas):
         """(A, G) log-likelihood surface over the outer product of the

@@ -29,7 +29,9 @@ tests inject the reference's draws (``draws=``).
 
 Not ported (ROADMAP): ``checkpoint`` and resume, ``mesh`` over chains,
 sampled parameters that change sigma (an in-trace gram), the
-``iter_trace`` telemetry records, and the dense (``kron=False``) path.
+``iter_trace`` telemetry records, and the dense (``kron=False``)
+posterior (pint_tpu gw/hmc.py:270 ``_dense_chi2_logdet``): a dense
+:class:`CommonProcess` raises here.
 """
 
 from __future__ import annotations
@@ -116,6 +118,11 @@ class GWBPosterior:
 
     def __init__(self, crn: CommonProcess, sample=SAMPLEABLE, bounds=None,
                  scales=None):
+        if not crn.kron:
+            raise NotImplementedError(
+                "GWBPosterior over a dense CommonProcess (kron=False): the "
+                "dense posterior and its gradient are not ported (ROADMAP "
+                "queue 1 item 8)")
         if crn.resids is None:
             raise ValueError(
                 "GWBPosterior needs a CommonProcess built from pairs "

@@ -18,6 +18,11 @@ Kronecker-structured two-level Woodbury (the last section): per-pulsar
 weighted grams over a :class:`RaggedStack` (kernel K3,
 ``csrc/kron_gram.cu``, on CUDA; :func:`kron_gram_plain` on the CPU), a
 batched per-pulsar Cholesky, and one LU of the (P m2, P m2) GW sector.
+Its dense counterpart, the reference's oracle for it, forms each grid
+point's (K, K) capacity matrix from one gram: kernel K11
+(``csrc/crn_capacity.cu``) writes gram + phi^-1 with the prior inverted
+as m2 blocks of P x P, :func:`crn_capacity_plain` inverts the dense
+prior as the reference does.
 
 Where pint_tpu and PyTorch part ways:
 
@@ -45,6 +50,10 @@ from pint_tpu_torch._cuda import CudaKernel
 #: pins its coefficient instead of producing 1/0.  Kept although IEEE
 #: f64 would not need it: it changes the answer.
 _PHI_FLOOR = 1e-30
+#: relative ridge on each diagonal entry of a dense prior before its
+#: Cholesky (pint_tpu linalg._phi_terms): a rank-deficient ORF (monopole,
+#: dipole) leaves kron(orf, diag(phi_gw)) an exact null space
+_PHI_JITTER = 1e-12
 
 #: kernel K2 (replaces the jax.ops.segment_sum calls of pint_tpu
 #: linalg.py:158 _ut_dot and :191 _weighted_gram)
@@ -373,7 +382,18 @@ def cho_solve(L, b):
 
 def _phi_terms(phi):
     """(phi_inv (K, K), logdet_phi) for a (K,) weight vector, the
-    diagonal floored at ``_PHI_FLOOR``."""
+    diagonal floored at ``_PHI_FLOOR``, or for a dense (K, K) prior
+    covariance: each diagonal entry raised by ``_PHI_JITTER`` (|phi_ii| +
+    ``_PHI_FLOOR``), then the Cholesky inverse and 2 sum log diag L
+    (pint_tpu linalg.py:223; a failed factorization gives NaN).  The
+    reference's ``jitter=`` escalation is not ported (ROADMAP queue 1
+    item 3)."""
+    if phi.dim() == 2:
+        d = torch.abs(torch.diagonal(phi)) + _PHI_FLOOR
+        L = cho_factor(phi + _PHI_JITTER * torch.diag(d))
+        eye = torch.eye(phi.shape[0], dtype=phi.dtype, device=phi.device)
+        return (torch.cholesky_solve(eye, L),
+                2.0 * torch.sum(torch.log(torch.diagonal(L))))
     phi = torch.clamp(phi, min=_PHI_FLOOR)
     return torch.diag(1.0 / phi), torch.sum(torch.log(phi))
 
@@ -388,8 +408,9 @@ def _capacity(sigma, U, phi):
 
 
 def woodbury_chi2_logdet(r, sigma, U, phi, valid=None):
-    """(chi2, logdet C) for C = diag(sigma^2) + U diag(phi) U^T, by the
-    Woodbury identity and the matrix determinant lemma.  ``valid``
+    """(chi2, logdet C) for C = diag(sigma^2) + U Phi U^T, by the
+    Woodbury identity and the matrix determinant lemma; ``phi`` is a (K,)
+    weight vector (Phi diagonal) or a (K, K) prior covariance.  ``valid``
     masks bucketing pad rows out of the white logdet term (pint_tpu
     linalg.py:288)."""
     nvec, L, logdet_phi = _capacity(sigma, U, phi)
@@ -715,10 +736,6 @@ K3 = CudaKernel(
 K3_SPLIT_ROWS = 192
 K3_MAX_SPLITS = 11
 
-#: relative ridge on each GW prior block's diagonal (pint_tpu
-#: linalg.kron_gw_blocks): the dense reference's ``_phi_terms`` jitter
-_GW_JITTER = 1e-12
-
 
 class KronPhi(NamedTuple):
     """The stacked PTA prior ``blockdiag_a(diag(phi_noise[a])) (+)
@@ -891,7 +908,7 @@ def kron_gw_blocks(kp: KronPhi):
     orf, phi_gw = kp.orf, kp.phi_gw
     blocks = phi_gw[..., :, None, None] * orf
     d = torch.abs(phi_gw[..., :, None] * torch.diagonal(orf)) + _PHI_FLOOR
-    return blocks + torch.diag_embed(_GW_JITTER * d)
+    return blocks + torch.diag_embed(_PHI_JITTER * d)
 
 
 def kron_phi_dense(kp: KronPhi):
@@ -1192,6 +1209,101 @@ def kron_chi2_logdet(st: RaggedStack, kp: KronPhi):
 
     over a ragged stack (pint_tpu linalg.py:738)."""
     return kron_chi2_logdet_pre(kron_gram_precompute(st), kp)
+
+
+def kron_gram_append(pre: KronGram, pulsar, row0, r_rows, sigma_rows,
+                     u_rows, f_rows) -> KronGram:
+    """``pre`` extended by rows appended to pulsar ``pulsar`` (pint_tpu
+    linalg.py:1001): r (n,), sigma (n,), U (n, nb_max) zero-padded as
+    the grams are, F (n, m2).  The weighted row products are added onto
+    that pulsar's blocks and sum log sigma^2 of the rows onto its white
+    logdet; every other pulsar's blocks are untouched, out of place.  The
+    update is purely additive, so ``row0`` (where the rows start in the
+    pulsar's stack) is not read, as in the reference."""
+    del row0
+    w = 1.0 / sigma_rows**2
+    uw = u_rows * w[:, None]
+    fw = f_rows * w[:, None]
+
+    def bump(t, delta):
+        out = t.clone()
+        out[pulsar] = out[pulsar] + delta
+        return out
+
+    return KronGram(
+        g_uu=bump(pre.g_uu, uw.T @ u_rows),
+        g_uf=bump(pre.g_uf, uw.T @ f_rows),
+        g_ff=bump(pre.g_ff, fw.T @ f_rows),
+        b_u=bump(pre.b_u, uw.T @ r_rows),
+        b_f=bump(pre.b_f, fw.T @ r_rows),
+        rr=bump(pre.rr, torch.sum(r_rows * w * r_rows)),
+        ld_white=bump(pre.ld_white, torch.sum(torch.log(sigma_rows**2))))
+
+
+# --------------------------------------------------------------------------
+# the dense common-red-noise capacity (kernel K11 and its plain version)
+# --------------------------------------------------------------------------
+
+#: kernel K11 (replaces the dense prior, its inverse and the capacity add
+#: of pint_tpu gw/common.py:186 _crn_lnlike_one, vmapped at :207); two
+#: kernels a call, the capacity matrices and their logdet sums
+K11 = CudaKernel(
+    "crn_capacity", "crn_capacity.cu", "crn_capacity_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5)
+
+
+def crn_capacity_plain(gram, phi_noise, orf, phi_gw):
+    """(S (G, K, K), logdet_phi (G,)): S_g = gram + phi_g^-1 for the
+    dense prior phi_g = blockdiag(diag(phi_noise), kron(orf,
+    diag(phi_gw[g]))) in the reference's pulsar-major column order, its
+    inverse by :func:`_phi_terms` (pint_tpu gw/common.py:194-200,
+    linalg.py:223): the plain PyTorch version of K11, K^3 a point."""
+    out, lds = [], []
+    for pg in phi_gw:
+        phi_inv, ld = _phi_terms(kron_phi_dense(
+            KronPhi(orf=orf, phi_gw=pg, phi_noise=phi_noise)))
+        out.append(gram + phi_inv)
+        lds.append(ld)
+    return torch.stack(out), torch.stack(lds)
+
+
+def crn_capacity_cuda(gram, phi_noise, orf, phi_gw):
+    """Kernel K11 on CUDA tensors, the outputs of
+    :func:`crn_capacity_plain`: the GW sector as m2 independent P x P
+    blocks a point, each factored and inverted in one block's shared
+    memory; raises where P x P does not fit it."""
+    ts = tuple(t.contiguous() for t in (gram, phi_noise, orf, phi_gw))
+    dev = _check_cuda("crn_capacity_cuda", ts)
+    gram, phi_noise, orf, phi_gw = ts
+    g, m2 = phi_gw.shape
+    p, kn, k = orf.shape[0], phi_noise.shape[0], gram.shape[0]
+    if orf.shape != (p, p) or gram.shape != (k, k) or k != kn + p * m2:
+        raise ValueError("crn_capacity_cuda: gram (K, K) with K = kn + P m2 "
+                         "against phi_noise (kn,), orf (P, P), phi_gw "
+                         "(G, m2)")
+    if not K11.call("crn_capacity_smem", p):
+        raise NotImplementedError(
+            f"K11: a {p} x {p} ORF block does not fit one block's shared "
+            "memory; the dense CRN path of wider arrays is not ported "
+            "(ROADMAP queue 1 item 8)")
+    f64 = dict(dtype=torch.float64, device=dev)
+    S = torch.empty((g, k, k), **f64)
+    ld = torch.empty(g, **f64)
+    ld_blk = torch.empty((g, m2), **f64)
+    if g:
+        K11.launch(dev, *(t.data_ptr() for t in ts), S.data_ptr(),
+                   ld.data_ptr(), ld_blk.data_ptr(), g, k, kn, p, m2)
+    return S, ld
+
+
+def crn_capacity(gram, phi_noise, orf, phi_gw):
+    """K11 for CUDA tensors, its plain version for CPU tensors."""
+    dev = gram.device.type
+    if dev == "cuda":
+        return crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
+    if dev == "cpu":
+        return crn_capacity_plain(gram, phi_noise, orf, phi_gw)
+    raise ValueError(f"crn_capacity: no version for {gram.device}")
 
 
 # --------------------------------------------------------------------------

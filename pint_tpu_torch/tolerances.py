@@ -119,6 +119,38 @@ GW_OS_REL = 1e-9
 #: the kron-structured log-likelihood, one point and the grid, relative
 #: (the reference's own kron == dense pin, tests/test_kron_hmc.py)
 GW_LNLIKE_REL = 1e-10
+#: the dense log-likelihood under a singular ORF (monopole rank 1,
+#: dipole rank 3), relative: kron(orf, diag(phi_gw)) has an exact null
+#: space that only the 1e-12 relative ridge keeps positive, so each GW
+#: block's kappa is ~1e12 and the dense factorization's own noise, ~eps
+#: kappa, reaches 1e-5 of the affected terms.  The reference's own pin
+#: for these ORFs (tests/test_kron_hmc.py:279-290).
+GW_SINGULAR_REL = 2e-5
+
+
+def crn_capacity_limit(p: int, kappa: float) -> float:
+    """K11 against its plain version: |S_kernel - S_plain| within this
+    times max |S_plain| per point, and logdet phi within this times (its
+    count of log terms + |logdet phi|).  Each inverts P x P blocks of
+    condition number ``kappa`` by another route (K11 by blocks in shared
+    memory, the plain version the whole dense prior by LAPACK /
+    cuSOLVER); a Cholesky inverse is accurate to ~P eps kappa of its
+    largest entry, each log L_aa to ~P eps kappa, and the K terms of the
+    logdet, summed in other orders, to ~eps of their magnitude."""
+    return p * _EPS * kappa
+
+
+def crn_block_kappa(orf, phi_gw) -> float:
+    """The largest 2-norm condition number of the dense prior's GW
+    blocks phi_gw[k] orf + 1e-12 diag(|phi_gw[k] orf_aa| + 1e-30) over
+    every k of ``phi_gw`` (..., m2) (numpy)."""
+    orf = np.asarray(orf, np.float64)
+    d = np.abs(np.diag(orf))
+    return max(float(np.linalg.cond(
+        pg * orf + np.diag(1e-12 * (np.abs(pg * d) + 1e-30))))
+        for pg in np.asarray(phi_gw, np.float64).ravel())
+
+
 #: K3 / K4 against their plain versions on the card: per entry, a
 #: multiple of the sum of the absolute values of the entry's terms
 #: (the two sum in different orders; each order is exact to

@@ -1,4 +1,6 @@
-"""Kernels K1-K10 on the card against their plain PyTorch versions.
+"""Kernels K1-K11 on the card against their plain PyTorch versions, and
+the double-double arithmetic on CUDA tensors against the same calls on
+CPU tensors.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -869,3 +871,84 @@ def test_stream_on_card_counts_launches(card):
     lim = tol.fit_tolerances(out["cpu"][4])
     assert np.max(np.abs(out["cuda"][2] - out["cpu"][2]) / out["cpu"][3]) \
         <= lim["values_sigma"]
+
+
+@pytest.mark.parametrize("p,m2,n_noise,g", [(68, 28, 3, 2), (12, 10, 25, 64),
+                                            (5, 1, 0, 300), (169, 2, 1, 1)])
+def test_k11_against_plain_and_deterministic(card, p, m2, n_noise, g):
+    import chip_smoke
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    args = chip_smoke.k11_synthetic(p, m2, max(n_noise, 1), g)
+    if n_noise == 0:  # no noise columns: the GW sector alone
+        gram, _, orf, phi_gw = args
+        k = p * m2
+        args = (gram[-k:, -k:].contiguous(), gram.new_zeros(0), orf, phi_gw)
+    s1, l1 = tl.crn_capacity_cuda(*args)
+    s2, l2 = tl.crn_capacity_cuda(*args)
+    sp, lp = tl.crn_capacity_plain(*(t.cpu() for t in args))
+    assert torch.equal(s1.view(torch.int64), s2.view(torch.int64))
+    assert torch.equal(l1.view(torch.int64), l2.view(torch.int64))
+    lim = tol.crn_capacity_limit(p, tol.crn_block_kappa(
+        args[2].cpu().numpy(), args[3].cpu().numpy()))
+    s1, l1 = s1.cpu(), l1.cpu()
+    for i in range(g):
+        assert torch.max(torch.abs(s1[i] - sp[i])) \
+            <= lim * torch.max(torch.abs(sp[i]))
+        assert abs(float(l1[i] - lp[i])) \
+            <= lim * (sp.shape[-1] + abs(float(lp[i])))
+
+
+def test_k11_refuses_an_orf_wider_than_shared_memory(card):
+    from pint_tpu_torch import linalg as tl
+
+    f64 = dict(dtype=torch.float64, device=card)
+    p = 170
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tl.crn_capacity_cuda(torch.eye(p, **f64), torch.ones(0, **f64),
+                             torch.eye(p, **f64), torch.ones((1, 1), **f64))
+
+
+def test_k11_failed_block_is_nan(card):
+    import chip_smoke
+    from pint_tpu_torch import linalg as tl
+
+    gram, phi_noise, orf, phi_gw = chip_smoke.k11_synthetic(6, 4, 2, 2)
+    phi_gw[1, 2] = float("nan")
+    s, ld = tl.crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
+    kn = phi_noise.numel()
+    cols = kn + torch.arange(6, device=card) * 4 + 2
+    assert torch.isnan(s[1][cols[:, None], cols[None, :]]).all()
+    assert torch.isnan(ld[1]) and torch.isfinite(ld[0])
+    assert torch.isfinite(s[0]).all()
+
+
+def test_dd_bit_identical_on_card(card):
+    import chip_smoke
+
+    assert chip_smoke.dd_mismatches(n=100_000) == []
+
+
+def test_dense_lnlike_on_card_counts_launches(card):
+    """The wide case's dense likelihood on the card: K11 runs, K3 does
+    not, and the card's answer is the CPU's and its own kron one's."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import (PTA4_WIDE, load_arrays,
+                                        pta_case_from_arrays)
+    from pint_tpu_torch.gw.common import CommonProcess
+
+    arrays = load_arrays(PTA4_WIDE)
+    pairs = pta_case_from_arrays(arrays)
+    nmodes = int(arrays["ref_nmodes"])
+    la, ga = (float(x) for x in arrays["ref_lnlike_point"])
+    tl.K11.launches = tl.K3.launches = 0
+    dense = CommonProcess(pairs, nmodes=nmodes, kron=False, device=card)
+    got = dense.lnlike(la, ga)
+    assert tl.K11.launches == 1 and tl.K3.launches == 0
+    cpu = CommonProcess(pairs, nmodes=nmodes, kron=False, device="cpu")
+    kron = CommonProcess(pairs, nmodes=nmodes, device=card)
+    for ref in (cpu.lnlike(la, ga), kron.lnlike(la, ga),
+                float(arrays["ref_lnlike"])):
+        assert abs(got / ref - 1) <= tol.GW_LNLIKE_REL

@@ -333,12 +333,14 @@ def test_lnlike_and_grid(crn_pair, monkeypatch):
 
 def test_common_process_built_alone(tpairs, crn_pair):
     """A CommonProcess built from pairs equals the one sharing the OS
-    build."""
+    build, and its dense twin (kron=False) equals it (the reference's
+    kron == dense pin)."""
     _, shared = crn_pair
     alone = CommonProcess(tpairs, nmodes=NMODES, device=CPU)
     assert alone.lnlike(-14.0, 4.0) == shared.lnlike(-14.0, 4.0)
-    with pytest.raises(NotImplementedError, match="kron=False"):
-        CommonProcess(tpairs, nmodes=NMODES, kron=False, device=CPU)
+    dense = CommonProcess(tpairs, nmodes=NMODES, kron=False, device=CPU)
+    assert abs(dense.lnlike(-14.0, 4.0) / alone.lnlike(-14.0, 4.0) - 1) \
+        <= tol.GW_LNLIKE_REL
 
 
 def test_non_finite_is_reported(crn_pair):
