@@ -57,7 +57,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     and warm wall, grid points/s, peak memory, busy share, device time
     per point against the capacity Cholesky's bound;
 9b. ``k11``: K11 (the dense capacity G0 + phi^-1) against its plain
-    version at the path's full width (4 points) and at P = 12, G = 512:
+    version at the path's full width (4 points, and the grid's chunk of
+    9) and at P = 12, G = 512:
     S per point relative to its largest entry and logdet phi within
     ``tolerances.crn_capacity_limit`` of the GW blocks' kappa,
     bit-identical run to run; its time beside the plain version, the
@@ -112,9 +113,11 @@ the closing ``{"ok": true, ...}`` line is not printed:
     conditioning-aware limits; launches of K1, K2 and K7 during each
     fit; cold and warm walls, TOAs/s, busy share of a warm fit;
 15. ``k7`` (WLS whitening pass) against its plain version at the WLS
-    fit's own (r, J, sigma) and at N = 10^4, P = 11: rw bit-identical,
-    the rest within ``tolerances.WLS_WHITEN_REL``, bit-identical run to
-    run; time, bound, ptxas report;
+    fit's own (r, J, sigma), at N = 10^4, P = 11 (one cooperative
+    launch) and at the WLS grid's 256 x 10^4 x 8 (two launches): rw,
+    and Jn where the norms are equal, bit-identical, the rest within
+    ``tolerances.WLS_WHITEN_REL``, bit-identical run to run; time,
+    plain time, bound and ptxas report at the latter two;
 16. ``pulse numbers``: the two cases of
     ``pint_tpu_torch/data/pn_answers.npz`` -- a 40-TOA gap case with 1 us
     of white noise under TRACK -2, its pulse numbers from
@@ -141,7 +144,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
     run to run; time beside the plain version, the library composite
     (dense U^T (R/n)^T + solve_triangular) and the bound at each, the
     launch plan, ptxas's registers and spills of its three kernels (a
-    spill fails the phase); ``grid kernels``: K1, K2 and K7 at the
+    spill fails the phase); ``grid kernels``: K1 and K2 at the
     grids' batched shapes against their plain versions, timed;
 19. ``downhill``: ``DownhillGLSFitter`` and ``DownhillWLSFitter`` from
     the exported start (SINI = 0.995), held to JAX's iteration count,
@@ -217,7 +220,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
     K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
     stream for K10, the dense CRN path for K11; K10's times at the
-    fold's shape, K11's at the path's 4 points), error
+    fold's shape, K11's at the grid's chunk of 9 points), error
     against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
     computes the same function.
@@ -1722,8 +1725,11 @@ def phase_pulse_numbers(ref):
 
 def phase_k7(f_wls):
     """K7 against wls_whiten_plain on the card: at the WLS fit's own
-    (r, J, sigma) and at N = 10^4, P = 11; run-to-run bit identity;
-    time, plain time and bound at the latter."""
+    (r, J, sigma), at N = 10^4, P = 11 (the fit's shape: one cooperative
+    launch) and at the WLS grid's 256 points of N = 10^4, P = 8 against
+    the fit's sigma (two launches); rw, and Jn where the norms are
+    equal, bit-identical to plain, run-to-run bit identity; time, plain
+    time and bound at the latter two."""
     import torch
 
     from pint_tpu_torch import tolerances as tol
@@ -1735,42 +1741,68 @@ def phase_k7(f_wls):
     r, J = f_wls._rj(vec, base, f_wls._fit_data)
     sigma = f_wls._fit_data["noise_sigma"]
     rng = np.random.default_rng(11)
-    n, p = 10_000, 11
-    syn = (torch.tensor(rng.standard_normal(n) * 1e-6, device="cuda"),
-           torch.tensor(rng.standard_normal((n, p))
-                        * 10.0 ** rng.uniform(-8, 8, p), device="cuda"),
-           torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device="cuda"))
+
+    def synthetic(g, n, p, err):
+        lead = (g,) if g > 1 else ()
+        return (torch.tensor(rng.standard_normal(lead + (n,)) * 1e-6,
+                             device="cuda"),
+                torch.tensor(rng.standard_normal(lead + (n, p))
+                             * 10.0 ** rng.uniform(-8, 8, p),
+                             device="cuda"), err)
+
+    n = 10_000
+    cases = {"fit": (r.detach(), J.detach(), sigma),
+             "n10k_p11": synthetic(1, n, 11, torch.tensor(
+                 rng.uniform(0.5, 2.0, n) * 1e-6, device="cuda")),
+             "grid_256": synthetic(256, sigma.numel(), 8, sigma)}
     errs, same = {}, True
-    for label, args in (("fit", (r.detach(), J.detach(), sigma)),
-                        ("n10k_p11", syn)):
+    for label, args in cases.items():
         a = wls_whiten_cuda(*args)
         b = wls_whiten_cuda(*args)
         q = wls_whiten_plain(*args)
         torch.cuda.synchronize()
-        same = same and _bits_equal(a, b) and torch.equal(a[0], q[0])
+        eq = torch.all(a[2] == q[2], dim=-1)
+        same = (same and _bits_equal(a, b) and torch.equal(a[0], q[0])
+                and torch.equal(a[1][eq], q[1][eq]))
         errs[label] = {nm: tol.vector_rel(x.cpu().numpy(), y.cpu().numpy())
                        for nm, x, y in zip(("rw", "Jn", "norms", "chi2"),
                                            a, q)}
-    max_abs = max(float(torch.max(torch.abs(x - y)))
-                  for x, y in zip(wls_whiten_cuda(*syn),
-                                  wls_whiten_plain(*syn)))
     log(f"k7: vs plain (vector_rel) " + json.dumps(errs) + f" (limit "
-        f"{tol.WLS_WHITEN_REL:g}; rw bit-identical); run-to-run "
-        f"bit-identical {same}; fit shape {tuple(J.shape)}")
+        f"{tol.WLS_WHITEN_REL:g}; rw, and Jn at equal norms, "
+        f"bit-identical); run-to-run bit-identical {same}; fit shape "
+        f"{tuple(J.shape)}")
     if not (same and all(v <= tol.WLS_WHITEN_REL for e in errs.values()
                          for v in e.values())):
         raise AssertionError("K7 disagrees with its plain version")
-    ms, how = kernel_ms(partial(wls_whiten_cuda, *syn))
-    plain_ms, _ = kernel_ms(partial(wls_whiten_plain, *syn))
-    b, by = bound_ms(8 * (2 * n * p + 3 * n + p + 1), 3 * n * p + 4 * n)
-    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": b, "bound_by": by, "max_abs_err": max_abs,
-           "timed_by": how, "kernels_per_call": 2,
-           "per_call_with_enqueue_ms": cuda_ms(partial(wls_whiten_cuda,
-                                                       *syn))}
-    out.update(build_report(K7, ("wls_whiten_partial", "wls_whiten_apply")))
-    out["splits"] = K7.call("wls_whiten_splits", n)
-    log(f"k7 at N={n}, P={p}: " + json.dumps(out))
+    out = {}
+    for label in ("n10k_p11", "grid_256"):
+        args = cases[label]
+        g = args[0].shape[0] if args[0].dim() == 2 else 1
+        n, p = args[1].shape[-2:]
+        max_abs = max(float(torch.max(torch.abs(x - y)))
+                      for x, y in zip(wls_whiten_cuda(*args),
+                                      wls_whiten_plain(*args)))
+        ms, how = kernel_ms(partial(wls_whiten_cuda, *args))
+        plain_ms, _ = kernel_ms(partial(wls_whiten_plain, *args))
+        # J, r in and Jn, rw out a point, the norms and chi^2, err once
+        b, by = bound_ms(8 * (g * (2 * n * p + 2 * n + p + 1) + n),
+                         g * (3 * n * p + 4 * n))
+        coop = K7.call("wls_whiten_cooperative", g, n, p)
+        row = {"shape": [g, n, p], "ms": ms, "plain_ms": plain_ms,
+               "library_ms": None, "bound_ms": b, "bound_by": by,
+               "max_abs_err": max_abs, "timed_by": how,
+               "cooperative": coop, "kernels_per_call": 1 if coop else 2,
+               "tiles": K7.call("wls_whiten_tiles", n, p),
+               "per_call_with_enqueue_ms": cuda_ms(partial(wls_whiten_cuda,
+                                                           *args))}
+        log(f"k7 {label}: " + json.dumps(row))
+        out[label] = row
+    del cases
+    rep = build_report(K7, ("wls_whiten_coop", "wls_whiten_tile_sums",
+                            "wls_whiten_apply"))
+    log("k7 ptxas: " + json.dumps(rep))
+    out.update(out.pop("n10k_p11"))
+    out.update(rep)
     return out
 
 
@@ -2001,18 +2033,17 @@ def phase_k8(g):
     return out
 
 
-def phase_grid_kernels(g, g_wls):
-    """K1, K2 and K7 at the grids' batched shapes: K1 over G F0 values
+def phase_grid_kernels(g):
+    """K1 and K2 at the grids' batched shapes: K1 over G F0 values
     against the ticks, K2 over the G P columns of the GLS step's U^T
-    (J w), K7 over the WLS grid's G designs; each against its plain
-    version (K1 and K7 on the card, K2 on the CPU: the plain version's
-    ``index_add`` on the card adds with atomics, in no fixed order),
-    with time, plain time, bound and library."""
+    (J w); each against its plain version (K1 on the card, K2 on the
+    CPU: the plain version's ``index_add`` on the card adds with
+    atomics, in no fixed order), with time, plain time, bound and
+    library.  K7 at the WLS grid's shape is ``phase_k7``'s."""
     import torch
 
     from pint_tpu_torch import fixedpoint as fp
     from pint_tpu_torch import linalg as tl
-    from pint_tpu_torch import tolerances as tol
 
     prep = g["fn"].resids.prepared
     dt = prep.ctx["Spindown"]["dt_ticks"]
@@ -2054,29 +2085,7 @@ def phase_grid_kernels(g, g_wls):
     out["k2"]["plain_ms"], _ = kernel_ms(
         partial(tl.segment_sum_plain, x, su.perm, su.offsets))
     out["k2"]["library_ms"], _ = kernel_ms(lib2)
-
-    p = len(g_wls["fit_params"])
-    r = torch.tensor(rng.standard_normal((gn, n)) * 1e-6, device="cuda")
-    J = torch.tensor(rng.standard_normal((gn, n, p))
-                     * 10.0 ** rng.uniform(-8, 8, p), device="cuda")
-    err = g_wls["fn"].resids.sigma_at(
-        g_wls["fn"].resids.prepared.values_dict())
-    ka, kb = tl.wls_whiten_cuda(r, J, err), tl.wls_whiten_cuda(r, J, err)
-    q = tl.wls_whiten_plain(r, J, err)
-    rel = {nm: tol.vector_rel(x_.cpu().numpy(), y_.cpu().numpy())
-           for nm, x_, y_ in zip(("rw", "Jn", "norms", "chi2"), ka, q)}
-    if not (_bits_equal(ka, kb) and torch.equal(ka[0], q[0])
-            and all(v <= tol.WLS_WHITEN_REL for v in rel.values())):
-        raise AssertionError(f"K7 at the grid's shape differs: {rel}")
-    b, by = bound_ms(8 * (gn * (2 * n * p + 2 * n + p + 1) + n),
-                     gn * (3 * n * p + 4 * n))
-    out["k7"] = {"shape": [gn, n, p], "vs_plain": rel, "bound_ms": b,
-                 "bound_by": by, "library_ms": None}
-    out["k7"]["ms"], out["k7"]["timed_by"] = kernel_ms(
-        partial(tl.wls_whiten_cuda, r, J, err))
-    out["k7"]["plain_ms"], _ = kernel_ms(
-        partial(tl.wls_whiten_plain, r, J, err))
-    log("grid kernels (K1, K2, K7 at the grids' batched shapes): "
+    log("grid kernels (K1, K2 at the grids' batched shapes): "
         + json.dumps(out))
     return out
 
@@ -3162,7 +3171,7 @@ def phase_crn_dense(arrays, pairs, kron_surf):
         f"grid ({base_mem / 2**30:.3f} GiB held before it)")
     busy, dev_ms, _ = trace_breakdown(
         lambda: crn.lnlike_grid(grid_a, grid_g), t_grid, "crn_dense_grid",
-        {"K11": ["crn_capacity", "crn_logdet"],
+        {"K11": ["crn_"],
          "cuSOLVER potrf": ["getrf_wo_pivot", "syrk", "potrf"],
          "solve": ["trsv", "trsm"], "ATen": ["at::native"]})
     # one point's least work: the capacity's Cholesky and one solve at
@@ -3191,18 +3200,23 @@ def k11_synthetic(p, m2, n_noise, g, seed=11):
     pos /= np.linalg.norm(pos, axis=1)[:, None]
     kn = p * n_noise
     k = kn + p * m2
-    a = rng.standard_normal((2 * k, k))
+    # the gram from the card's generator: at full width (K = 6188) the
+    # host would take seconds
+    a = torch.randn((2 * k, k), dtype=torch.float64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
     phi_noise = 10.0 ** rng.uniform(-16.0, -12.0, kn)
     phi_noise[n_noise - 1::n_noise] = 1e30
-    return tuple(torch.tensor(x, device="cuda") for x in (
-        (a.T @ a) * 1e14, phi_noise, orf_matrix(pos, "hd"),
-        10.0 ** rng.uniform(-22.0, -14.0, (g, m2))))
+    return ((a.T @ a) * 1e14,) + tuple(
+        torch.tensor(x, device="cuda") for x in (
+            phi_noise, orf_matrix(pos, "hd"),
+            10.0 ** rng.uniform(-22.0, -14.0, (g, m2))))
 
 
 def phase_k11(crn):
     """K11 against its plain version on the card at the dense path's
     full width (4 points: the exported three and the grid's corner of
-    least GW power, where phi^-1 is largest) and at a small-P,
+    least GW power, where phi^-1 is largest; 9 points: the grid's chunk,
+    a 3 x 3 lattice over the grid's range) and at a small-P,
     many-point shape: S per point relative to its largest entry and
     logdet phi within ``tolerances.crn_capacity_limit`` of the blocks'
     kappa, bit-identical run to run; times beside the plain version, the
@@ -3220,8 +3234,13 @@ def phase_k11(crn):
                       device="cuda")
     ga = torch.tensor([13 / 3, 3.0, 5.5, 6.0], dtype=torch.float64,
                       device="cuda")
+    la9, ga9 = (torch.tensor(x, dtype=torch.float64, device="cuda")
+                for x in np.meshgrid(np.linspace(-15.0, -13.5, 3),
+                                     np.linspace(2.0, 6.0, 3)))
     cases = {"path G4": (dd.gram, dd.phi_noise, dd.orf,
                          crn._phi_gw(la, ga)),
+             "grid chunk G9": (dd.gram, dd.phi_noise, dd.orf,
+                               crn._phi_gw(la9.ravel(), ga9.ravel())),
              "small P": k11_synthetic(12, 10, 25, 512)}
     out = {}
     for label, args in cases.items():
@@ -3266,8 +3285,8 @@ def phase_k11(crn):
             8 * ((1 + g) * k * k + kn + p * p + g * m2 + g),
             g * m2 * p**3, FP64_FLOPS)
         row["shared_bytes"] = K11.call("crn_capacity_smem", p)
-        row["blocks"] = g * (m2 + -(-kn // p))
-        if label == "path G4":
+        row["gw_blocks"] = g * m2
+        if label == "grid chunk G9":
             # one point's, as the path factors them
             row["capacity_cholesky_ms"] = queued_ms(
                 lambda: cho_factor(s1[0]), reps=10)
@@ -3277,9 +3296,66 @@ def phase_k11(crn):
         torch.cuda.empty_cache()
         out[label] = row
         log(f"k11 {label} times: " + json.dumps(row))
-    rep = build_report(K11, ("crn_capacity_kernel", "crn_logdet_kernel"))
+    rep = build_report(K11, ("crn_gw_block_kernel", "crn_copy_kernelILb1ELb0",
+                             "crn_copy_kernelILb1ELb1",
+                             "crn_copy_kernelILb0ELb0",
+                             "crn_copy_kernelILb0ELb1", "crn_logdet_kernel"))
     log("k11 ptxas: " + json.dumps(rep))
     out.update(rep)
+    return out
+
+
+def _bits_checksum(*ts):
+    """An exact checksum of the tensors' bits: the int64 sum of each
+    element's bits times its position, wrapping (the same in any
+    order)."""
+    import torch
+
+    out = 0
+    for t in ts:
+        v = t.contiguous().view(torch.int64).flatten()
+        w = torch.arange(1, v.numel() + 1, dtype=torch.int64,
+                         device=v.device)
+        out = (out * 1000003 + int((v * w).sum())) % 2**64
+    return out
+
+
+def k11_k7_times():
+    """K11 and K7 at their paths' shapes under ``queued_ms``, for
+    ``tools/torch_turns.py``: K11 at the dense grid's chunk of 9 points
+    and at 4 points of a full-width synthetic array (K = 6188: 68
+    pulsars, 63 noise columns each, m2 = 28) and at P = 12, G = 512;
+    K7 at the WLS fit's N = 10^4, P = 11 and at the WLS grid's 256 x
+    10^4 x 8.  Each beside an exact checksum of its outputs' bits, so
+    that two checkouts' outputs can be compared."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+
+    out = {}
+    for label, args in (("k11 G9", lambda: k11_synthetic(68, 28, 63, 9)),
+                        ("k11 G4", lambda: k11_synthetic(68, 28, 63, 4)),
+                        ("k11 P12 G512",
+                         lambda: k11_synthetic(12, 10, 25, 512))):
+        args = args()
+        s, ld = tl.crn_capacity_cuda(*args)
+        out[label] = {"checksum": _bits_checksum(s, ld)}
+        del s, ld
+        out[label]["ms"] = queued_ms(lambda: tl.crn_capacity_cuda(*args),
+                                     reps=20)
+        del args
+        torch.cuda.empty_cache()
+    rng = np.random.default_rng(7)
+    for label, (g, n, p) in (("k7 fit", (1, 10_000, 11)),
+                             ("k7 grid", (256, 10_000, 8))):
+        lead = (g,) if g > 1 else ()
+        args = (torch.tensor(rng.standard_normal(lead + (n,)) * 1e-6,
+                             device="cuda"),
+                torch.tensor(rng.standard_normal(lead + (n, p))
+                             * 10.0 ** rng.uniform(-8, 8, p), device="cuda"),
+                torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device="cuda"))
+        out[label] = {"checksum": _bits_checksum(*tl.wls_whiten_cuda(*args)),
+                      "ms": queued_ms(partial(tl.wls_whiten_cuda, *args))}
     return out
 
 
@@ -3537,8 +3613,7 @@ def main():
         g_wls = run("grid wls", phase_grid, "wls", white, toas_pt, gref)
         if g_gls is not None:
             k8 = run("k8", phase_k8, g_gls)
-            if g_wls is not None:
-                run("grid kernels", phase_grid_kernels, g_gls, g_wls)
+            run("grid kernels", phase_grid_kernels, g_gls)
         run("downhill", phase_downhill, model_pt, white, toas_pt, gref)
     if table is not None and k8 is not None:
         table.append(gw_row("woodbury_chi2_pre", "woodbury_pre.cu",
@@ -3601,7 +3676,8 @@ def main():
         if table is not None and k11 is not None:
             table.append(gw_row("crn_capacity", "crn_capacity.cu",
                                 "pint_tpu/gw/common.py:186",
-                                crn_d["launches"]["K11"], k11["path G4"]))
+                                crn_d["launches"]["K11"],
+                                k11["grid chunk G9"]))
         else:
             table = None
         crn_d = None

@@ -19,32 +19,58 @@
 // need m2 P^3 (P^3/3 to factor, P^3/3 to invert L, P^3/3 for L^-T L^-1).
 //
 // Bound on an H100 SXM.  At pta68_500 (K = 6188, kn = 4284, P = 68,
-// m2 = 28) a point reads G0 and writes S, 2 K^2 doubles = 612 MB,
-// ~0.18 ms at 3.35 TB/s; its operations, ~9e6, are nothing beside that.
-// Bytes bound it, so the design writes every entry of S in one pass.
+// m2 = 28) G points read G0 once and write S G times, (1 + G) K^2
+// doubles: 3.06 GB at the grid's chunk of 9 points, 0.914 ms at 3.35
+// TB/s; the blocks' operations, G m2 P^3 ~ 7e7, are nothing beside that.
+// Bytes bound it, so the design reads every entry of G0 once for all G
+// points and writes every entry of S once, in whole 32-byte sectors.
 //
-// Design.  One launch of crn_capacity_kernel, grid (m2 + n_copy, G):
-// - block (k < m2, g) copies its P rows of G0 (kn + a m2 + k) into S_g,
-//   loads B_{g,k} into shared memory, factors it (right-looking, one
-//   column a step), inverts L in place by rows, and after the barriers
-//   overwrites the P^2 entries (kn + a m2 + k, kn + b m2 + k) of its rows
-//   with G0 + (L^-T L^-1)_ab, each entry summed in ascending order (so
-//   the block's inverse is exactly symmetric); it writes sum log L_aa to
-//   ld_blk.  A pivot that is not > 0 (a NaN among them) makes the whole
-//   block and its log NaN, as the reference's failed cho_factor does.
-// - block (m2 + j, g) copies noise rows j, j + n_copy, ... of G0, the
-//   thread that holds the diagonal entry adding the jittered reciprocal
-//   (1 / s) / s with s = sqrt(phi'), the arithmetic of a Cholesky and
-//   two triangular solves on a diagonal entry.
-// Then crn_logdet_kernel, one block per point, sums log s over the noise
+// Design.  Every entry of S is written once, in whole row segments (no
+// partial 32-byte sectors), and G0 is read once for all G points:
+// - crn_gw_block_kernel, grid (m2, G), (P^2 + 2 P) doubles of dynamic
+//   shared memory a block (2 warps for P <= 32, else 8): block (k, g)
+//   loads B_{g,k} (rows P + 1 doubles apart: no bank conflicts down a
+//   column), factors it (right-looking, one column a step: the pivot's
+//   column scaled, then the trailing update, a lane a column, a warp its
+//   rows four at a time), inverts L by forward substitution
+//   column-parallel (X_cj = -(sum_{c'=j}^{c-1} L_cc' X_c'j) / L_cc, each
+//   running sum kept in the upper triangle and advanced in ascending c'
+//   as every row X_c' lands: the terms and order of L^-1 by rows),
+//   forms M = L^-T L^-1 (M_ab summed over c >= max(a, b) in ascending
+//   order) and writes it, P x P, to the scratch Mg (G m2 P^2 doubles,
+//   9.3 MB at the grid's chunk: held in L2), and sum log L_aa, in
+//   ascending a, to ld_blk.  A pivot that is not > 0 (a NaN among them)
+//   makes its M and its log NaN, so that its entries of S are NaN, as
+//   the reference's failed cho_factor makes them.
+// - crn_copy_kernel, no shared memory, a row a block, chunks of 4
+//   double2 a thread, each loaded once (16-byte loads where the rows
+//   allow them) and stored to every point's row with streaming stores
+//   (st.global.cs), so that S does not push G0 out of L2.  A noise
+//   row's diagonal gets the jittered reciprocal (1 / s) / s, s =
+//   sqrt(phi'), computed once per row: the arithmetic of a Cholesky and
+//   two triangular solves on a diagonal entry; a GW row's entry (kn + b
+//   m2 + k) of point g gets M_ab of block (k, g).
+// Order: the blocks and then the copy of the GW x GW quadrant (the
+// 9.5 % of S that needs M) on a stream of the launcher's own; beside
+// them on the caller's stream the copy of the rest (noise rows, the GW
+// rows' noise columns), at most 2 blocks an SM so that the GW blocks
+// find room beside it; events join the streams before and after.  Then
+// crn_logdet_kernel, one block per point, sums log s over the noise
 // entries (each thread a strided run in ascending order, then a fixed
 // tree) and the m2 block sums in order: logdet = 2 (noise + sum_k).
-// No atomics: the result is bit-identical from run to run.  Indices into
-// S are 64-bit.  -fmad=false keeps every multiply and add separately
-// rounded.  P is limited by one block's shared memory: (P^2 + P) doubles
-// within 227 kB, P <= 169 (crn_capacity_smem says what a P needs).
+// Beside the copy the blocks run ~5x slower than alone (~120 us at the
+// grid's chunk): the copy's loads and stores queue ahead of their
+// shared-memory accesses, and their serial chain of P column steps
+// (two barriers each) ends after the copy at 4 points.
+// No atomics: the result is bit-identical from run to run, and to the
+// single-pass K11 before it (the same operations on every entry).
+// Indices into S are 64-bit.  -fmad=false keeps every multiply and add
+// separately rounded.  P is limited by one block's shared memory: (P^2
+// + 2 P) doubles within 227 kB, P <= 169 (crn_capacity_smem says what a
+// P needs).
 
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 #define THREADS 256
@@ -52,117 +78,206 @@
 #define SMEM_LIMIT (232448 - 64)
 #define JITTER 1e-12
 #define PHI_FLOOR 1e-30
+// double2 (or double) chunks a copy thread holds before it stores them
+#define UNROLL 4
+// copy blocks resident at once (8 a streaming multiprocessor)
+#define COPY_BLOCKS 1056
 
-__device__ __forceinline__ void copy_row(const double* __restrict__ src,
-                                         double* __restrict__ dst, int64_t K,
-                                         int64_t diag, double add) {
-  // four loads in flight a thread before their stores
-  for (int64_t c = threadIdx.x; c < K; c += 4 * THREADS) {
-    double v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t cc = c + q * THREADS;
-      v[q] = cc < K ? src[cc] : 0.0;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int64_t cc = c + q * THREADS;
-      if (cc < K) dst[cc] = cc == diag ? v[q] + add : v[q];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) crn_capacity_kernel(
-    const double* __restrict__ g0, const double* __restrict__ phi_noise,
+__global__ void __launch_bounds__(THREADS) crn_gw_block_kernel(
     const double* __restrict__ orf, const double* __restrict__ phi_gw,
-    double* __restrict__ S, double* __restrict__ ld_blk, int64_t K, int kn,
-    int P, int m2, int n_copy) {
+    double* __restrict__ Mg, double* __restrict__ ld_blk, int P, int m2) {
   extern __shared__ double sm[];
-  const int g = blockIdx.y, x = blockIdx.x, tid = threadIdx.x;
-  double* Sg = S + (int64_t)g * K * K;
-  if (x >= m2) {  // noise rows
-    for (int r = x - m2; r < kn; r += n_copy) {
-      const double p = phi_noise[r];
-      const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
-      const double s = sqrt(pp);
-      copy_row(g0 + (int64_t)r * K, Sg + (int64_t)r * K, K, r,
-               (1.0 / s) / s);
-    }
-    return;
-  }
-  const int k = x;
+  const int g = blockIdx.y, k = blockIdx.x, tid = threadIdx.x;
+  const int nt = blockDim.x, nw = nt >> 5, lane = tid & 31, warp = tid >> 5;
+  const int ld = P + 1;     // B's row stride: odd, no bank conflicts
   double* B = sm;           // P x P, row-major
-  double* tmp = sm + P * P;  // one row of L
+  double* tmp = sm + P * ld;  // L's diagonal
   __shared__ int bad;
   __shared__ double logsum;
-  for (int a = 0; a < P; ++a) {
-    const int64_t r = kn + (int64_t)a * m2 + k;
-    copy_row(g0 + r * K, Sg + r * K, K, -1, 0.0);
-  }
   const double pg = phi_gw[(int64_t)g * m2 + k];
-  for (int e = tid; e < P * P; e += THREADS) {
+  for (int e = tid; e < P * P; e += nt) {
     const int a = e / P, b = e - a * P;
     double v = orf[e] * pg;
     if (a == b) v = v + JITTER * (fabs(v) + PHI_FLOOR);
-    B[e] = v;
+    B[a * ld + b] = v;
   }
-  if (tid == 0) {
-    bad = 0;
-    logsum = 0.0;
-  }
+  if (tid == 0) bad = 0;
   __syncthreads();
-  // Cholesky, lower, right-looking
+  // Cholesky, lower, right-looking: at step j the column is scaled, then
+  // B_ic -= B_ij B_cj for j < c <= i, a lane a column c (B_cj held), a
+  // warp the rows i, four at a time (their loads in flight together)
   for (int j = 0; j < P; ++j) {
-    const double pj = B[j * P + j];
+    const double pj = B[j * ld + j];
     const double djj = sqrt(pj);
-    __syncthreads();  // every thread has read the pivot
-    for (int i = j + 1 + tid; i < P; i += THREADS)
-      B[i * P + j] = B[i * P + j] / djj;
+    for (int i = j + 1 + tid; i < P; i += nt)
+      B[i * ld + j] = B[i * ld + j] / djj;
+    __syncthreads();  // the column is scaled; every thread read the pivot
     if (tid == 0) {
-      B[j * P + j] = djj;
+      B[j * ld + j] = djj;
+      tmp[j] = djj;
       if (!(pj > 0.0)) bad = 1;
-      logsum = logsum + log(djj);
     }
-    __syncthreads();
-    const int n = P - j - 1;
-    for (int e = tid; e < n * n; e += THREADS) {
-      const int ii = e / n, cc = e - ii * n;
-      if (cc <= ii) {
-        const int i = j + 1 + ii, c = j + 1 + cc;
-        B[i * P + c] = B[i * P + c] - B[i * P + j] * B[c * P + j];
+    for (int c = j + 1 + lane; c < P; c += 32) {
+      const double lcj = B[c * ld + j];
+      int i = j + 1 + warp;
+      if (i < c) i += (c - i + nw - 1) / nw * nw;  // the warp's first i >= c
+      for (; i + 3 * nw < P; i += 4 * nw) {
+        double x[4], l[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[q] = B[(i + q * nw) * ld + c];
+          l[q] = B[(i + q * nw) * ld + j];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) B[(i + q * nw) * ld + c] = x[q] - l[q] * lcj;
       }
+      for (; i < P; i += nw) B[i * ld + c] = B[i * ld + c] - B[i * ld + j] * lcj;
     }
     __syncthreads();
   }
-  // L^-1 in place, by rows: X_ij = -(sum_{c=j}^{i-1} L_ic X_cj) / L_ii
-  for (int i = 0; i < P; ++i) {
-    for (int c = tid; c <= i; c += THREADS) tmp[c] = B[i * P + c];
-    __syncthreads();
-    for (int j = tid; j <= i; j += THREADS) {
-      double v;
-      if (j == i) {
-        v = 1.0 / tmp[i];
-      } else {
-        double s = 0.0;
-        for (int c = j; c < i; ++c) s = s + tmp[c] * B[c * P + j];
-        v = -s / tmp[i];
-      }
-      B[i * P + j] = v;
-    }
-    __syncthreads();
-  }
-  const bool nan = bad != 0;
-  // (L^-T L^-1)_ab = sum_{c >= max(a, b)} X_ca X_cb onto G0's entries
-  for (int e = tid; e < P * P; e += THREADS) {
-    const int a = e / P, b = e - a * P;
+  // sum log L_aa in ascending a (warp 0: lane l takes the logs of a = l,
+  // l + 32, ..., lane 0 adds them in order)
+  if (warp == 0) {
     double s = 0.0;
-    for (int c = a > b ? a : b; c < P; ++c) s = s + B[c * P + a] * B[c * P + b];
-    const int64_t idx = (kn + (int64_t)a * m2 + k) * K + kn + (int64_t)b * m2 + k;
-    Sg[idx] = nan ? __longlong_as_double(0x7ff8000000000000LL) : g0[idx] + s;
+    for (int a0 = 0; a0 < P; a0 += 32) {
+      const double lg = a0 + lane < P ? log(tmp[a0 + lane]) : 0.0;
+      for (int q = 0; q < 32 && a0 + q < P; ++q)
+        s = s + __shfl_sync(0xffffffffu, lg, q);
+    }
+    if (lane == 0) logsum = s;
   }
+  // L^-1 in place: at step c row c of X lands (X_cc = 1 / L_cc, X_cj =
+  // -acc_cj / L_cc), then acc_ij += L_ic X_cj for i > c, j <= c: a lane a
+  // column j (X_cj held), a warp the rows i, four at a time; acc_ij lives
+  // at B[j ld + i] (the upper triangle), from 0.0
+  for (int a = warp; a < P; a += nw)
+    for (int b = a + 1 + lane; b < P; b += 32) B[a * ld + b] = 0.0;
+  __syncthreads();
+  for (int c = 0; c < P; ++c) {
+    for (int j = tid; j <= c; j += nt)
+      B[c * ld + j] = j == c ? 1.0 / tmp[c] : -B[j * ld + c] / tmp[c];
+    __syncthreads();
+    for (int j = lane; j <= c; j += 32) {
+      const double xcj = B[c * ld + j];
+      int i = c + 1 + warp;
+      for (; i + 3 * nw < P; i += 4 * nw) {
+        double x[4], l[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[q] = B[j * ld + i + q * nw];
+          l[q] = B[(i + q * nw) * ld + c];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) B[j * ld + i + q * nw] = x[q] + l[q] * xcj;
+      }
+      for (; i < P; i += nw) B[j * ld + i] = B[j * ld + i] + B[i * ld + c] * xcj;
+    }
+    __syncthreads();
+  }
+  // M_ab = M_ba = sum_{c >= max(a, b)} X_ca X_cb, to the scratch
+  const bool nan = bad != 0;
+  double* M = Mg + ((int64_t)g * m2 + k) * P * P;
+  for (int a = warp; a < P; a += nw)
+    for (int b = a + lane; b < P; b += 32) {
+      double s = 0.0;
+      for (int c = b; c < P; ++c) s = s + B[c * ld + a] * B[c * ld + b];
+      if (nan) s = __longlong_as_double(0x7ff8000000000000LL);
+      M[a * P + b] = s;
+      M[b * P + a] = s;
+    }
   if (tid == 0)
     ld_blk[(int64_t)g * m2 + k] =
         nan ? __longlong_as_double(0x7ff8000000000000LL) : logsum;
+}
+
+// rows [r0, r1) of every point: with GW = false every column of a noise
+// row (the diagonal's reciprocal added) and a GW row's noise columns
+// [0, kn); with GW = true a GW row's columns [kn, K), the blocks' M
+// added on their entries.  At most 51 registers a thread, so that the GW
+// blocks find room beside the first copy.
+template <bool VEC, bool GW>
+__global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
+    const double* __restrict__ g0, const double* __restrict__ phi_noise,
+    const double* __restrict__ Mg, double* __restrict__ S, int64_t G,
+    int64_t K, int64_t kn, int P, int m2, int64_t r0, int64_t r1) {
+  const int64_t PP = (int64_t)P * P;
+  for (int64_t r = r0 + blockIdx.x; r < r1; r += gridDim.x) {
+    double add = 0.0;
+    int k = 0, a = 0;  // a GW row's block and pulsar
+    if (GW) {
+      a = (int)(r - kn) / m2;
+      k = (int)(r - kn) - a * m2;
+    } else if (r < kn) {
+      const double p = phi_noise[r];
+      const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
+      const double s = sqrt(pp);
+      add = (1.0 / s) / s;
+    }
+    // M_ab of point g at Mg[g m2 P^2 + mrow + b]
+    const int64_t mrow = ((int64_t)k * P + a) * P;
+    const double* src = g0 + r * K;
+    // the row's columns [cb, ce)
+    const int64_t cb = GW ? kn : 0, ce = GW || r < kn ? K : kn;
+    if (VEC) {  // K and kn even, the pointers 16-byte aligned
+      const int64_t n2 = ce / 2;
+      const double2* s2 = reinterpret_cast<const double2*>(src);
+      for (int64_t q0 = cb / 2; q0 < n2; q0 += UNROLL * THREADS) {
+        double2 v[UNROLL];
+        int bx[UNROLL], by[UNROLL];  // M's column b, -1: not a block entry
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int64_t q = q0 + u * THREADS + threadIdx.x;
+          v[u] = q < n2 ? s2[q] : make_double2(0.0, 0.0);
+          bx[u] = by[u] = -1;
+          if (!GW) {
+            if (2 * q == r) v[u].x = v[u].x + add;
+            if (2 * q + 1 == r) v[u].y = v[u].y + add;
+          } else {
+            const int c = (int)(2 * q - kn);
+            if (c % m2 == k) bx[u] = c / m2;
+            if ((c + 1) % m2 == k) by[u] = (c + 1) / m2;
+          }
+        }
+        for (int64_t g = blockIdx.y; g < G; g += gridDim.y) {
+          double2* d2 = reinterpret_cast<double2*>(S + (g * K + r) * K);
+          const double* M = Mg + g * m2 * PP + mrow;
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int64_t q = q0 + u * THREADS + threadIdx.x;
+            if (q < n2) {
+              double2 w = v[u];
+              if (GW && bx[u] >= 0) w.x = w.x + M[bx[u]];
+              if (GW && by[u] >= 0) w.y = w.y + M[by[u]];
+              __stcs(d2 + q, w);
+            }
+          }
+        }
+      }
+    } else {
+      for (int64_t c0 = cb; c0 < ce; c0 += UNROLL * THREADS) {
+        double v[UNROLL];
+        int bx[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          const int64_t c = c0 + u * THREADS + threadIdx.x;
+          v[u] = c < ce ? src[c] : 0.0;
+          bx[u] = -1;
+          if (!GW && c == r) v[u] = v[u] + add;
+          if (GW && c < ce && (int)(c - kn) % m2 == k)
+            bx[u] = (int)(c - kn) / m2;
+        }
+        for (int64_t g = blockIdx.y; g < G; g += gridDim.y) {
+          double* d = S + (g * K + r) * K;
+          const double* M = Mg + g * m2 * PP + mrow;
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u) {
+            const int64_t c = c0 + u * THREADS + threadIdx.x;
+            if (c < ce) __stcs(d + c, bx[u] >= 0 ? v[u] + M[bx[u]] : v[u]);
+          }
+        }
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) crn_logdet_kernel(
@@ -191,13 +306,83 @@ __global__ void __launch_bounds__(THREADS) crn_logdet_kernel(
 
 // dynamic shared bytes of a GW block at P pulsars, 0 where they do not fit
 extern "C" int crn_capacity_smem(int64_t P) {
-  const int64_t b = (P * P + P) * (int64_t)sizeof(double);
+  const int64_t b = (P * (P + 1) + P) * (int64_t)sizeof(double);
   return P >= 1 && b <= SMEM_LIMIT ? (int)b : 0;
 }
 
+// the rows [r0, r1) of every point in at most `cap` blocks (0: no cap)
+template <bool GW>
+static cudaError_t copy_rows(const void* g0, const void* phi_noise,
+                             const void* Mg, void* S, int64_t G, int64_t K,
+                             int64_t kn, int64_t P, int64_t m2, int64_t r0,
+                             int64_t r1, int64_t cap, cudaStream_t s) {
+  if (r1 <= r0) return cudaSuccess;
+  // a row a block, the points split over gridDim.y only where the rows
+  // are too few to fill the card
+  const int64_t rows = r1 - r0;
+  int64_t splits = COPY_BLOCKS / rows;
+  if (splits > G) splits = G;
+  if (splits < 1) splits = 1;
+  int64_t gx = rows;
+  if (cap > 0 && gx * splits > cap) gx = cap / splits > 0 ? cap / splits : 1;
+  const dim3 grid((unsigned)gx, (unsigned)splits);
+  const bool vec =
+      K % 2 == 0 && kn % 2 == 0 && ((uintptr_t)g0 | (uintptr_t)S) % 16 == 0;
+  // an SM running the copy keeps its shared memory for the GW blocks
+  // (its carveout is set while it runs; the copy uses none)
+  const cudaError_t e = cudaFuncSetAttribute(
+      vec ? crn_copy_kernel<true, GW> : crn_copy_kernel<false, GW>,
+      cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  if (vec)
+    crn_copy_kernel<true, GW><<<grid, THREADS, 0, s>>>(
+        (const double*)g0, (const double*)phi_noise, (const double*)Mg,
+        (double*)S, G, K, kn, (int)P, (int)m2, r0, r1);
+  else
+    crn_copy_kernel<false, GW><<<grid, THREADS, 0, s>>>(
+        (const double*)g0, (const double*)phi_noise, (const double*)Mg,
+        (double*)S, G, K, kn, (int)P, (int)m2, r0, r1);
+  return cudaGetLastError();
+}
+
+// the launcher's own stream for the GW blocks and the events that join
+// it to the caller's, one set per device, made at first use; and the
+// device's SM count
+struct Side {
+  cudaStream_t stream;
+  cudaEvent_t in, out;
+  int sms;
+};
+
+static int side_of(int dev, Side** out) {
+  static Side sides[64];
+  static bool made[64];
+  static std::mutex lock;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(lock);
+  if (!made[dev]) {
+    Side& x = sides[dev];
+    cudaError_t e;
+    if ((e = cudaDeviceGetAttribute(&x.sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaStreamCreateWithFlags(&x.stream, cudaStreamNonBlocking)) !=
+            cudaSuccess ||
+        (e = cudaEventCreateWithFlags(&x.in, cudaEventDisableTiming)) !=
+            cudaSuccess ||
+        (e = cudaEventCreateWithFlags(&x.out, cudaEventDisableTiming)) !=
+            cudaSuccess)
+      return (int)e;
+    made[dev] = true;
+  }
+  *out = &sides[dev];
+  return 0;
+}
+
+// Mg: G m2 P^2 doubles of scratch
 extern "C" int crn_capacity_launch(const void* g0, const void* phi_noise,
                                    const void* orf, const void* phi_gw,
-                                   void* S, void* ld, void* ld_blk,
+                                   void* S, void* ld, void* ld_blk, void* Mg,
                                    int64_t G, int64_t K, int64_t kn,
                                    int64_t P, int64_t m2, void* stream) {
   if (G < 1 || G > 65535 || P < 1 || m2 < 1 || kn < 0 || K != kn + P * m2 ||
@@ -206,18 +391,34 @@ extern "C" int crn_capacity_launch(const void* g0, const void* phi_noise,
   const int smem = crn_capacity_smem(P);
   if (!smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      crn_capacity_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      crn_gw_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_copy = kn > 0 ? (int)((kn + P - 1) / P) : 0;
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  Side* side = nullptr;
+  const int serr = side_of(dev, &side);
+  if (serr) return serr;
   cudaStream_t s = (cudaStream_t)stream;
-  crn_capacity_kernel<<<dim3((unsigned)(m2 + n_copy), (unsigned)G), THREADS,
-                        (size_t)smem, s>>>(
-      (const double*)g0, (const double*)phi_noise, (const double*)orf,
-      (const double*)phi_gw, (double*)S, (double*)ld_blk, K, (int)kn,
-      (int)P, (int)m2, n_copy);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  // on the side stream, after the caller's work so far: the GW blocks,
+  // then the quadrant's copy; beside them on the caller's stream the
+  // rest of S, in 2 blocks an SM (room for the blocks beside them)
+  if ((err = cudaEventRecord(side->in, s)) != cudaSuccess ||
+      (err = cudaStreamWaitEvent(side->stream, side->in, 0)) != cudaSuccess)
+    return (int)err;
+  // 2 warps a block for a small P, 8 for a larger one
+  crn_gw_block_kernel<<<dim3((unsigned)m2, (unsigned)G), P <= 32 ? 64 : 256,
+                        (size_t)smem, side->stream>>>(
+      (const double*)orf, (const double*)phi_gw, (double*)Mg,
+      (double*)ld_blk, (int)P, (int)m2);
+  if ((err = cudaGetLastError()) != cudaSuccess ||
+      (err = copy_rows<true>(g0, phi_noise, Mg, S, G, K, kn, P, m2, kn, K, 0,
+                             side->stream)) != cudaSuccess ||
+      (err = cudaEventRecord(side->out, side->stream)) != cudaSuccess ||
+      (err = copy_rows<false>(g0, phi_noise, Mg, S, G, K, kn, P, m2, 0, K,
+                              2 * (int64_t)side->sms, s)) != cudaSuccess ||
+      (err = cudaStreamWaitEvent(s, side->out, 0)) != cudaSuccess)
+    return (int)err;
   crn_logdet_kernel<<<(unsigned)G, THREADS, 0, s>>>(
       (const double*)phi_noise, (const double*)ld_blk, (double*)ld, (int)kn,
       (int)m2);

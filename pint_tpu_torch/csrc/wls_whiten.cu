@@ -14,144 +14,327 @@
 //
 // Why by hand: the column sums over N must come out the same on every
 // run; torch.sum on CUDA does not promise a reduction order.  Here the
-// order is fixed by construction, as in K2 and K3:
+// order is fixed by construction, as in K2 and K3.
 //
-//   pass 1 (wls_whiten_partial): one block per (split of rows_per_block
-//     consecutive rows, point).  Thread t takes rows t, t + 256, ... of
-//     its split in ascending order, reads each row of J (and err, r)
-//     once and keeps the squares of up to 32 columns in registers (the
-//     columns come in chunks of 32; column P is rw, so a design of up
-//     to 31 parameters is one chunk and every row is read once).  Each
-//     column's 256 sums are then reduced by a fixed butterfly inside
-//     each warp (lane 0's sum is kept) and the 8 warp sums are added in
-//     ascending warp order; one thread per column writes the split's
-//     partial.
-//   pass 2 (wls_whiten_apply): every block of point g sums g's partials
-//     of each column in ascending split order into shared memory (the
-//     same order in every block, so every block holds the same bits),
-//     takes the square root and replaces a zero by 1; block 0 writes
-//     norms and chi2.  Then each thread writes rw and the P entries of
-//     Jn for its rows (grid-stride).
+// Bound on an H100 (3.35 TB/s): memory.  J, r and err are read once and
+// Jn, rw written once: 8 G (2 N P + 2 N) + 8 N bytes, ~1.9 MB at one
+// point of N = 10^4, P = 11 (~0.6 us, so launch latency is the real
+// cost), ~290 MB at a 256-point grid of P = 8 (~87 us).
 //
+// The order.  A point's rows are cut into tiles of 32 (the last one
+// shorter); a warp sums a tile.  With C = min(P + 1, 32) columns a round
+// (column P is rw's), lane l takes column l % C and the tile's rows
+// l / C, l / C + R, ... (R = 32 / C) in ascending order, squares of
+// J w (r w) added one by one; the R sums of a column are then added in
+// ascending order (shuffles), and the tile's partial is stored at (g,
+// column, tile).  The norms: a warp a column sums the point's tile
+// partials, lane l those of tiles l, l + 32, ... in ascending order,
+// then a fixed xor butterfly (every lane holds the same bits); sqrt, a
+// zero replaced by 1.  The order depends on N and P alone, so both forms
+// below give the same bits, and a point of a batch the bits of the same
+// point alone.
+//
+// Two forms:
+// - one cooperative launch (wls_whiten_coop) where every block of every
+//   point is co-resident with its rows in shared memory: a block of 8
+//   warps stages its 256 rows of J (contiguous, 256 P doubles; a tile a
+//   warp) by cp.async, 16 bytes a
+//   copy where J is 16-byte aligned (8 at the odd ends), with their r
+//   and w = 1 / err; its warps sum their tiles from there; one grid
+//   sync; the norms; Jn = (J w) / norm and rw = r w written from the
+//   staged rows, consecutive threads on consecutive addresses.  J is
+//   read once (the WLS fit's 10^4 x 11: 40 blocks).
+// - else two launches (the WLS grid's 256 x 10^4 x 8, 164 MB of J), 8
+//   warps a block: wls_whiten_tile_sums, whose warps read their tiles
+//   straight from
+//   global memory (a warp's loads cover whole rows, coalesced), then
+//   wls_whiten_apply, each block its point's norms and then a run of
+//   rows, its w in shared memory, Jn and rw with four loads in flight a
+//   thread.  J is read twice.
 // rw and Jn use the plain version's operations in its order (one
 // correctly rounded multiply, one division), so for equal norms they are
 // bit-identical to it; the norms and chi2 differ from torch.sum's only
 // by summation order.  -fmad=false keeps every product separately
-// rounded.  Row offsets are int64 products; no loop divides an integer
-// (the launcher alone sizes the splits).
-//
-// Bound on an H100 (3.35 TB/s): memory.  J, r and err are read once and
-// Jn, rw written once: 8 G (2 N P + 2 N) + 8 N bytes, ~1.9 MB at one
-// point of N = 10^4, P = 11 (~0.6 us, so two launches' latency is the
-// real cost), ~290 MB at a 256-point grid of P = 8 (~87 us).
+// rounded.  Offsets are int64 products.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 #define K7_THREADS 256
 #define K7_WARPS (K7_THREADS / 32)
-#define K7_CHUNK 32
+#define K7_TILE 32                          // rows a warp sums
+#define K7_BLOCK_ROWS (K7_WARPS * K7_TILE)  // rows a block takes
+// the most shared memory a cooperative block stages
+#define K7_COOP_SMEM (200 * 1024)
+// the apply's blocks over all points, and its most rows a block
+#define K7_APPLY_BLOCKS 1056
+#define K7_APPLY_ROWS 8192
+#define FULL 0xffffffffu
 
-__global__ void __launch_bounds__(K7_THREADS)
-wls_whiten_partial(const double* __restrict__ r,
-                   const double* __restrict__ J,
-                   const double* __restrict__ err,
-                   double* __restrict__ partial, int64_t n, int64_t p,
-                   int64_t err_stride, int64_t rows_per_block) {
-  __shared__ double sh[K7_WARPS][K7_CHUNK];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int64_t g = blockIdx.y;
-  const int64_t splits = gridDim.x;
-  const double* rg = r + g * n;
-  const double* Jg = J + g * n * p;
-  const double* eg = err + g * err_stride;
-  const int64_t row0 = (int64_t)blockIdx.x * rows_per_block;
-  int64_t row1 = row0 + rows_per_block;
-  if (row1 > n) row1 = n;
-  for (int64_t c0 = 0; c0 <= p; c0 += K7_CHUNK) {
-    double acc[K7_CHUNK];
-#pragma unroll
-    for (int j = 0; j < K7_CHUNK; ++j) acc[j] = 0.0;
-    for (int64_t i = row0 + t; i < row1; i += K7_THREADS) {
-      const double w = 1.0 / eg[i];
-      const double* Ji = Jg + i * p;
-#pragma unroll
-      for (int j = 0; j < K7_CHUNK; ++j) {
-        const int64_t c = c0 + j;
-        if (c <= p) {
-          const double v = (c < p) ? Ji[c] * w : rg[i] * w;
-          acc[j] = __dadd_rn(acc[j], __dmul_rn(v, v));
-        }
+struct K7Args {
+  const double* r;
+  const double* J;
+  const double* err;
+  double* partial;  // (G, P + 1, tiles)
+  double* rw;
+  double* jn;
+  double* norms;
+  double* chi2;
+  int64_t n, p, err_stride, tiles;
+  int vec;  // J 16-byte aligned
+};
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// a cooperative block's shared memory (doubles): its rows of J (+ 2 for
+// the alignment shift), r, w, the column values
+__host__ __device__ inline int64_t coop_doubles(int64_t p) {
+  return K7_BLOCK_ROWS * p + 2 + 2 * K7_BLOCK_ROWS + (p + 1);
+}
+
+// the sums of one tile (rows row0 .. row0 + nrows - 1 of point g) into
+// partial (g, c, t): J's entry (i, c) of the tile is jat(i, c), r's
+// rat(i), w's wat(i); the whole warp calls it
+template <class JAt, class RAt, class WAt>
+__device__ __forceinline__ void tile_sums(const K7Args& a, int64_t g,
+                                          int64_t t, int nrows, JAt jat,
+                                          RAt rat, WAt wat) {
+  const int lane = threadIdx.x & 31;
+  const int64_t p = a.p;
+  const int C = p + 1 < 32 ? (int)(p + 1) : 32;
+  const int R = 32 / C, lr = lane / C, cj = lane - lr * C;
+  for (int64_t c0 = 0; c0 <= p; c0 += C) {
+    const int64_t c = c0 + cj;
+    double acc = 0.0;
+    if (lr < R && c <= p) {
+#pragma unroll 4
+      for (int i = lr; i < nrows; i += R) {
+        const double v = __dmul_rn(c < p ? jat(i, c) : rat(i), wat(i));
+        acc = __dadd_rn(acc, __dmul_rn(v, v));
       }
     }
-#pragma unroll
-    for (int j = 0; j < K7_CHUNK; ++j) {
-      double v = acc[j];
-      for (int off = 16; off > 0; off >>= 1)
-        v = __dadd_rn(v, __shfl_xor_sync(0xffffffffu, v, off));
-      if (lane == 0) sh[warp][j] = v;
-    }
-    __syncthreads();
-    if (t < K7_CHUNK && c0 + t <= p) {
-      double s = 0.0;
-      for (int wi = 0; wi < K7_WARPS; ++wi) s = __dadd_rn(s, sh[wi][t]);
-      partial[(g * splits + blockIdx.x) * (p + 1) + c0 + t] = s;
-    }
-    __syncthreads();
+    double s = acc;
+    for (int l = 1; l < R; ++l)
+      s = __dadd_rn(s, __shfl_sync(FULL, acc, cj + l * C));
+    if (lane < C && c <= p) a.partial[(g * (p + 1) + c) * a.tiles + t] = s;
   }
 }
 
-__global__ void __launch_bounds__(K7_THREADS)
-wls_whiten_apply(const double* __restrict__ r, const double* __restrict__ J,
-                 const double* __restrict__ err,
-                 const double* __restrict__ partial,
-                 double* __restrict__ rw, double* __restrict__ jn,
-                 double* __restrict__ norms, double* __restrict__ chi2,
-                 int64_t n, int64_t p, int64_t err_stride, int64_t splits) {
-  extern __shared__ double col[];  // p + 1 entries
-  const int64_t g = blockIdx.y;
-  const double* pg = partial + g * splits * (p + 1);
-  for (int64_t c = threadIdx.x; c <= p; c += K7_THREADS) {
-    double acc = 0.0;
-    for (int64_t s = 0; s < splits; ++s)
-      acc = __dadd_rn(acc, pg[s * (p + 1) + c]);
-    if (c < p) {
-      const double nrm = sqrt(acc);
-      col[c] = (nrm == 0.0) ? 1.0 : nrm;
-      if (blockIdx.x == 0) norms[g * p + c] = col[c];
-    } else if (blockIdx.x == 0) {
-      chi2[g] = acc;
+// the norms of point g (and chi2 in col[p]) from its tile partials,
+// in the same order in every block; `write` stores norms and chi2
+__device__ void column_norms(const K7Args& a, int64_t g, double* col,
+                             bool write) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int64_t c = warp; c <= a.p; c += K7_WARPS) {
+    const double* pc = a.partial + (g * (a.p + 1) + c) * a.tiles;
+    double v = 0.0;
+    for (int64_t t0 = lane; t0 < a.tiles; t0 += 16 * 32) {
+      double x[16];  // loaded together, added in order
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        x[q] = t0 + q * 32 < a.tiles ? pc[t0 + q * 32] : 0.0;
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (t0 + q * 32 < a.tiles) v = __dadd_rn(v, x[q]);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      v = __dadd_rn(v, __shfl_xor_sync(FULL, v, off));
+    if (lane == 0) {
+      if (c < a.p) {
+        const double nrm = sqrt(v);
+        col[c] = nrm == 0.0 ? 1.0 : nrm;
+        if (write) a.norms[g * a.p + c] = col[c];
+      } else {
+        col[c] = v;
+        if (write) a.chi2[g] = v;
+      }
     }
   }
   __syncthreads();
-  const double* rg = r + g * n;
-  const double* Jg = J + g * n * p;
-  const double* eg = err + g * err_stride;
-  const int64_t stride = (int64_t)gridDim.x * K7_THREADS;
-  for (int64_t i = (int64_t)blockIdx.x * K7_THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const double w = 1.0 / eg[i];
-    rw[g * n + i] = rg[i] * w;
-    const int64_t base = i * p;
-    for (int64_t c = 0; c < p; ++c) {
-      const double jw = Jg[base + c] * w;
-      jn[g * n * p + base + c] = jw / col[c];
+}
+
+// one cooperative launch, grid (blocks of 8 tiles, G): each block keeps
+// its rows in shared memory across the grid sync
+__global__ void __launch_bounds__(K7_THREADS) wls_whiten_coop(K7Args a) {
+  extern __shared__ __align__(16) double sm[];
+  const int64_t g = blockIdx.y, p = a.p;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int64_t row0 = (int64_t)blockIdx.x * K7_BLOCK_ROWS;
+  const int nrows =
+      (int)(a.n - row0 < K7_BLOCK_ROWS ? a.n - row0 : K7_BLOCK_ROWS);
+  double* Jt = sm;
+  double* rt = sm + K7_BLOCK_ROWS * p + 2;
+  double* wt = rt + K7_BLOCK_ROWS;
+  double* col = wt + K7_BLOCK_ROWS;
+  // stage: Jt[shift + e] holds the block's element e of J
+  const int64_t e0 = (g * a.n + row0) * p, e1 = e0 + nrows * p;
+  int64_t shift = 0;
+  if (a.vec) {
+    shift = e0 & 1;
+    const int64_t hi = e1 & ~(int64_t)1;
+    for (int64_t e = e0 + shift + 2 * tid; e < hi; e += 2 * K7_THREADS)
+      cp_async16(Jt + shift + (e - e0), a.J + e);
+    if (tid == 0 && e1 > e0) {
+      if (e0 & 1) cp_async8(Jt + shift, a.J + e0);
+      if (e1 & 1) cp_async8(Jt + shift + (e1 - 1 - e0), a.J + e1 - 1);
+    }
+  } else {
+    for (int64_t e = e0 + tid; e < e1; e += K7_THREADS)
+      cp_async8(Jt + (e - e0), a.J + e);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  const double* eg = a.err + g * a.err_stride + row0;
+  const double* rg = a.r + g * a.n + row0;
+  for (int i = tid; i < nrows; i += K7_THREADS) {
+    wt[i] = 1.0 / eg[i];
+    rt[i] = rg[i];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  const int t0 = warp * K7_TILE;
+  const int64_t t = (int64_t)blockIdx.x * K7_WARPS + warp;
+  if (t < a.tiles) {
+    const double* Jw = Jt + shift + (int64_t)t0 * p;
+    tile_sums(
+        a, g, t, nrows - t0 < K7_TILE ? nrows - t0 : K7_TILE,
+        [&](int i, int64_t c) { return Jw[i * p + c]; },
+        [&](int i) { return rt[t0 + i]; },
+        [&](int i) { return wt[t0 + i]; });
+  }
+  cg::this_grid().sync();
+  column_norms(a, g, col, blockIdx.x == 0);
+  // rw and Jn from the staged rows
+  const int64_t base = g * a.n + row0;
+  for (int i = tid; i < nrows; i += K7_THREADS) a.rw[base + i] = rt[i] * wt[i];
+  if (p == 0) return;
+  const int64_t ne = nrows * p, di = K7_THREADS / p, dc = K7_THREADS - di * p;
+  int64_t i = tid / p, c = tid - (tid / p) * p;
+  double* jn = a.jn + base * p;
+  for (int64_t e = tid; e < ne; e += K7_THREADS) {
+    const double jw = Jt[shift + e] * wt[i];
+    jn[e] = jw / col[c];
+    i += di;
+    c += dc;
+    if (c >= p) {
+      c -= p;
+      i += 1;
     }
   }
 }
 
-// Rows per split: whole 256-row passes, at most 1024 splits.
-static int64_t rows_per_split(int64_t n) {
-  const int64_t cap = (int64_t)K7_THREADS * 1024;
-  const int64_t passes = (n + cap - 1) / cap;
-  return K7_THREADS * (passes > 0 ? passes : 1);
+// two launches, 1: the tiles' partials from global memory, grid (blocks
+// of 8 tiles, G)
+__global__ void __launch_bounds__(K7_THREADS)
+wls_whiten_tile_sums(K7Args a) {
+  const int64_t g = blockIdx.y, p = a.p;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t t = (int64_t)blockIdx.x * K7_WARPS + warp;
+  if (t >= a.tiles) return;
+  const int64_t row0 = t * K7_TILE;
+  const int nrows = (int)(a.n - row0 < K7_TILE ? a.n - row0 : K7_TILE);
+  // the tile's w and r, a lane a row
+  __shared__ double wsh[K7_WARPS][K7_TILE], rsh[K7_WARPS][K7_TILE];
+  if (lane < nrows) {
+    wsh[warp][lane] = 1.0 / a.err[g * a.err_stride + row0 + lane];
+    rsh[warp][lane] = a.r[g * a.n + row0 + lane];
+  }
+  __syncwarp();
+  const double* Jg = a.J + (g * a.n + row0) * p;
+  const double* wr = wsh[warp];
+  const double* rr = rsh[warp];
+  tile_sums(
+      a, g, t, nrows, [&](int i, int64_t c) { return Jg[i * p + c]; },
+      [&](int i) { return rr[i]; }, [&](int i) { return wr[i]; });
 }
 
-extern "C" int wls_whiten_splits(int64_t n) {
-  const int64_t rows = rows_per_split(n);
-  return (int)((n + rows - 1) / rows);
+// two launches, 2: grid (blocks, G), each block its point's norms, then
+// its run of rows from global memory
+__global__ void __launch_bounds__(K7_THREADS) wls_whiten_apply(K7Args a,
+                                                                int64_t rb) {
+  extern __shared__ __align__(16) double sm[];  // w (rb), col (p + 1)
+  const int64_t g = blockIdx.y, p = a.p;
+  const int tid = threadIdx.x;
+  double* wt = sm;
+  double* col = sm + rb;
+  const int64_t row0 = (int64_t)blockIdx.x * rb;
+  if (row0 >= a.n) return;
+  const int64_t nrows = a.n - row0 < rb ? a.n - row0 : rb;
+  const double* eg = a.err + g * a.err_stride + row0;
+  for (int64_t i = tid; i < nrows; i += K7_THREADS) wt[i] = 1.0 / eg[i];
+  column_norms(a, g, col, blockIdx.x == 0);  // ends with a barrier
+  const int64_t base = g * a.n + row0;
+  for (int64_t i = tid; i < nrows; i += K7_THREADS)
+    a.rw[base + i] = a.r[base + i] * wt[i];
+  if (p == 0) return;
+  const double* Jg = a.J + base * p;
+  double* jn = a.jn + base * p;
+  const int64_t ne = nrows * p, step = 4 * K7_THREADS;
+  const int64_t di = K7_THREADS / p, dc = K7_THREADS - di * p;
+  int64_t i = tid / p, c = tid - (tid / p) * p;
+  for (int64_t e0 = tid; e0 < ne; e0 += step) {
+    double v[4];
+    int64_t ii[4], cc[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int64_t e = e0 + u * K7_THREADS;
+      v[u] = e < ne ? Jg[e] : 0.0;
+      ii[u] = i;
+      cc[u] = c;
+      i += di;
+      c += dc;
+      if (c >= p) {
+        c -= p;
+        i += 1;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int64_t e = e0 + u * K7_THREADS;
+      if (e < ne) jn[e] = (v[u] * wt[ii[u]]) / col[cc[u]];
+    }
+  }
+}
+
+static int64_t tiles_of(int64_t n) { return (n + K7_TILE - 1) / K7_TILE; }
+
+extern "C" int wls_whiten_tiles(int64_t n, int64_t p) {
+  return n > 0 && p >= 0 ? (int)tiles_of(n) : 0;
+}
+
+// whether one cooperative launch takes (g, n, p): every block of every
+// point co-resident with its rows in shared memory (1), or not (0);
+// negative: a CUDA error
+extern "C" int wls_whiten_cooperative(int64_t g, int64_t n, int64_t p) {
+  const size_t smem = sizeof(double) * coop_doubles(p);
+  if (smem > K7_COOP_SMEM) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      wls_whiten_coop, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return -(int)e;
+  int dev = 0, sms = 0, per_sm = 0, coop = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch,
+                                  dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, wls_whiten_coop, K7_THREADS, smem)) != cudaSuccess)
+    return -(int)e;
+  const int64_t blocks = g * ((n + K7_BLOCK_ROWS - 1) / K7_BLOCK_ROWS);
+  return coop && blocks <= (int64_t)per_sm * sms ? 1 : 0;
 }
 
 extern "C" int wls_whiten_launch(const void* r, const void* J,
@@ -161,21 +344,40 @@ extern "C" int wls_whiten_launch(const void* r, const void* J,
                                  int64_t err_stride, void* stream) {
   if (g <= 0 || g > 65535 || n <= 0 || p < 0)
     return (int)cudaErrorInvalidValue;
-  const int64_t rows = rows_per_split(n);
-  const int64_t splits = (n + rows - 1) / rows;
+  K7Args a{(const double*)r, (const double*)J, (const double*)err,
+           (double*)partial, (double*)rw,       (double*)jn,
+           (double*)norms,   (double*)chi2,     n,
+           p,                err_stride,        tiles_of(n),
+           (int)((uintptr_t)J % 16 == 0)};
   cudaStream_t st = (cudaStream_t)stream;
-  wls_whiten_partial<<<dim3((unsigned)splits, (unsigned)g), K7_THREADS, 0,
-                       st>>>(
-      (const double*)r, (const double*)J, (const double*)err,
-      (double*)partial, n, p, err_stride, rows);
-  int e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  int64_t blocks = (n + K7_THREADS - 1) / K7_THREADS;
-  if (blocks > 528) blocks = 528;  // 4 per SM on 132 SMs; grid-stride
-  wls_whiten_apply<<<dim3((unsigned)blocks, (unsigned)g), K7_THREADS,
-                     (size_t)(p + 1) * sizeof(double), st>>>(
-      (const double*)r, (const double*)J, (const double*)err,
-      (const double*)partial, (double*)rw, (double*)jn, (double*)norms,
-      (double*)chi2, n, p, err_stride, splits);
+  const dim3 grid((unsigned)((n + K7_BLOCK_ROWS - 1) / K7_BLOCK_ROWS),
+                  (unsigned)g);
+  const int coop = wls_whiten_cooperative(g, n, p);
+  if (coop < 0) return -coop;
+  if (coop) {
+    void* params[] = {&a};
+    return (int)cudaLaunchCooperativeKernel(
+        (const void*)wls_whiten_coop, grid, dim3(K7_THREADS), params,
+        sizeof(double) * coop_doubles(p), st);
+  }
+  wls_whiten_tile_sums<<<grid, K7_THREADS, 0, st>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // the apply: at most K7_APPLY_BLOCKS blocks over all points where
+  // they take at most K7_APPLY_ROWS rows a block
+  int64_t bx = K7_APPLY_BLOCKS / g;
+  if (bx < (n + K7_APPLY_ROWS - 1) / K7_APPLY_ROWS)
+    bx = (n + K7_APPLY_ROWS - 1) / K7_APPLY_ROWS;
+  if (bx > (n + K7_THREADS - 1) / K7_THREADS)
+    bx = (n + K7_THREADS - 1) / K7_THREADS;
+  const int64_t rb = (n + bx - 1) / bx;
+  bx = (n + rb - 1) / rb;
+  const size_t smem2 = sizeof(double) * (rb + p + 1);
+  e = cudaFuncSetAttribute(wls_whiten_apply,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem2);
+  if (e != cudaSuccess) return (int)e;
+  wls_whiten_apply<<<dim3((unsigned)bx, (unsigned)g), K7_THREADS, smem2,
+                     st>>>(a, rb);
   return (int)cudaGetLastError();
 }

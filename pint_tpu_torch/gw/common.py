@@ -199,7 +199,8 @@ class CommonProcess:
 
     ``CommonProcess(pairs, nmodes=10, orf="hd", kron=True, device=None)``,
     pairs ``[(model, toas, tzr), ...]``; runs on CUDA unless ``device``
-    names another device.  ``kron=False`` takes the dense path.  Each
+    names another device.  ``kron=False`` takes the dense path; ``None``
+    takes the kron path, as the reference's default gate does.  Each
     path's arrays are built on first use: a dense instance builds no
     kron stacks (no K3), a kron one no U_full."""
 
@@ -230,7 +231,8 @@ class CommonProcess:
                                      device=self.device)
         self.df = float(df)
         self.n_toa_total = int(sum(len(d.r) for d in data))
-        self.kron = bool(kron)
+        # None is the reference's default gate, which takes the kron path
+        self.kron = kron is None or bool(kron)
         self._kron_data = kd
         self._pulsar_terms = None
         self._U_full = None

@@ -143,13 +143,15 @@ class GWBPosterior:
                         vals, name, 1e-3):
                     raise NotImplementedError(
                         f"{crn.names[k]}:{name} changes sigma; sampling it "
-                        "needs a gram built in the gradient (not ported)")
+                        "needs a gram built in the gradient (not ported: "
+                        "ROADMAP queue 1 item 8)")
                 red = [c for c in resid.model.noise_components
                        if type(c).__name__ == "PLRedNoise"]
                 if name not in SAMPLEABLE or not red or red[0].use_rn:
                     raise NotImplementedError(
                         f"{crn.names[k]}:{name}: only PLRedNoise's "
-                        f"{SAMPLEABLE} are sampled")
+                        f"{SAMPLEABLE} are sampled (ROADMAP queue 1 item "
+                        "8)")
                 self.noise_params.append((k, name))
                 self.param_names.append(f"{crn.names[k]}:{name}")
         self.ndim = len(self.param_names)
@@ -524,9 +526,12 @@ def _injected(draws, n_draws, n_chains, nd, num_leapfrog, device):
 def run_nuts(posterior: GWBPosterior, *, num_warmup=300, num_samples=500,
              n_chains=4, seed=0, x0=None, num_leapfrog=12,
              target_accept=0.8, step_size0=0.02, chunk=None,
-             generator=None, draws=None) -> NUTSResult:
+             mesh=None, checkpoint=None, generator=None,
+             draws=None) -> NUTSResult:
     """Sample a :class:`GWBPosterior` (pint_tpu gw/hmc.py:454; module
     docstring for what the sampler is).  Runs on the posterior's device.
+    ``mesh`` and ``checkpoint`` are the reference's names; anything but
+    None raises ``NotImplementedError``.
 
     generator: a ``torch.Generator`` on that device (default: one seeded
     with ``seed``).  draws: test-only ``(z, n_steps, u)`` host arrays of
@@ -534,6 +539,14 @@ def run_nuts(posterior: GWBPosterior, *, num_warmup=300, num_samples=500,
     n_chains) that replace the generator's numbers.  A run whose
     post-warmup positions are not all finite, or whose post-warmup
     lnprob is -inf everywhere, raises ``FitDivergedError``."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_nuts(mesh=): chains sharded over cards are not ported "
+            "(ROADMAP queue 1 item 8)")
+    if checkpoint is not None:
+        raise NotImplementedError(
+            "run_nuts(checkpoint=): checkpoint files and resume are not "
+            "ported (ROADMAP queue 1 item 2)")
     dev = posterior.device
     total = int(num_warmup) + int(num_samples)
     if chunk is None:

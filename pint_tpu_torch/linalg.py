@@ -172,7 +172,8 @@ class _SegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _grad):
         raise NotImplementedError(
-            "segment_sum (kernel K2) has a forward-mode rule only")
+            "segment_sum (kernel K2) has a forward-mode rule only; its "
+            "reverse-mode rule is not ported (ROADMAP queue 1 item 11)")
 
 
 def segment_sum_fixed_order(x, perm, offsets):
@@ -1245,11 +1246,13 @@ def kron_gram_append(pre: KronGram, pulsar, row0, r_rows, sigma_rows,
 # --------------------------------------------------------------------------
 
 #: kernel K11 (replaces the dense prior, its inverse and the capacity add
-#: of pint_tpu gw/common.py:186 _crn_lnlike_one, vmapped at :207); two
-#: kernels a call, the capacity matrices and their logdet sums
+#: of pint_tpu gw/common.py:186 _crn_lnlike_one, vmapped at :207); four
+#: kernels a call: the ORF blocks' inverses and then the copy of the GW x
+#: GW quadrant with them, beside the copy of the rest of S; the logdet
+#: sums
 K11 = CudaKernel(
     "crn_capacity", "crn_capacity.cu", "crn_capacity_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 5)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5)
 
 
 def crn_capacity_plain(gram, phi_noise, orf, phi_gw):
@@ -1271,7 +1274,8 @@ def crn_capacity_cuda(gram, phi_noise, orf, phi_gw):
     """Kernel K11 on CUDA tensors, the outputs of
     :func:`crn_capacity_plain`: the GW sector as m2 independent P x P
     blocks a point, each factored and inverted in one block's shared
-    memory; raises where P x P does not fit it."""
+    memory (raises where P x P does not fit it), and the rest of G0
+    read once and written to every point."""
     ts = tuple(t.contiguous() for t in (gram, phi_noise, orf, phi_gw))
     dev = _check_cuda("crn_capacity_cuda", ts)
     gram, phi_noise, orf, phi_gw = ts
@@ -1290,9 +1294,11 @@ def crn_capacity_cuda(gram, phi_noise, orf, phi_gw):
     S = torch.empty((g, k, k), **f64)
     ld = torch.empty(g, **f64)
     ld_blk = torch.empty((g, m2), **f64)
+    blocks = torch.empty((g, m2, p, p), **f64)  # each ORF block's inverse
     if g:
         K11.launch(dev, *(t.data_ptr() for t in ts), S.data_ptr(),
-                   ld.data_ptr(), ld_blk.data_ptr(), g, k, kn, p, m2)
+                   ld.data_ptr(), ld_blk.data_ptr(), blocks.data_ptr(), g,
+                   k, kn, p, m2)
     return S, ld
 
 
@@ -1315,8 +1321,8 @@ K7 = CudaKernel(
     "wls_whiten", "wls_whiten.cu", "wls_whiten_launch",
     [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 4)
 
-#: the widest design K7 takes: its second pass holds P + 1 column sums
-#: in shared memory, under the 48 kB a launch gets without opting in
+#: the widest design K7 takes: its second launch holds the P + 1 column
+#: values in shared memory beside a run of rows' weights
 K7_MAX_COLS = 4096
 #: the most points one K7 launch takes (its grid's second dimension)
 K7_MAX_POINTS = 65535
@@ -1339,7 +1345,9 @@ def wls_whiten_cuda(r, J, err):
     """Kernel K7 on CUDA tensors: r (N,) and J (N, P), or G points
     stacked, r (G, N) and J (G, N, P); err (N,) shared by the points or
     (G, N).  The outputs of :func:`wls_whiten_plain`, the column sums in
-    a fixed order, one launch for all points."""
+    a fixed order, one launcher call for all points (one cooperative
+    launch where every row tile fits the card's shared memory at once,
+    else two)."""
     ts = tuple(t.contiguous() for t in (r, J, err))
     dev = _check_cuda("wls_whiten_cuda", ts)
     r, J, err = ts
@@ -1355,7 +1363,8 @@ def wls_whiten_cuda(r, J, err):
         raise ValueError(f"wls_whiten_cuda: P = {p} > {K7_MAX_COLS} or "
                          f"G = {g} > {K7_MAX_POINTS}")
     f64 = dict(dtype=torch.float64, device=dev)
-    partial = torch.empty((g, K7.call("wls_whiten_splits", n), p + 1), **f64)
+    partial = torch.empty((g, p + 1, K7.call("wls_whiten_tiles", n, p)),
+                          **f64)
     rw = torch.empty(lead + (n,), **f64)
     Jn = torch.empty(lead + (n, p), **f64)
     norms = torch.empty(lead + (p,), **f64)

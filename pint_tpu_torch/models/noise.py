@@ -197,7 +197,7 @@ class EcorrNoise(NoiseComponent):
                 if np.any(seg[hit] >= 0):
                     raise NotImplementedError(
                         "overlapping ECORR epochs: the dense-basis "
-                        "fallback is not ported")
+                        "fallback is not ported (ROADMAP queue 1 item 3)")
                 seg[hit] = k + j
             k += len(buckets)
             counts.append(len(buckets))

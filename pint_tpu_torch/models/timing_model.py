@@ -283,7 +283,7 @@ class PreparedModel:
         if len(ecorrs) > 1:
             raise NotImplementedError(
                 "more than one ECORR component: the dense-basis fallback "
-                "is not ported")
+                "is not ported (ROADMAP queue 1 item 3)")
         pre, post = [], []
         seg, k_e = np.zeros(n, dtype=np.int64), 0
         side = pre

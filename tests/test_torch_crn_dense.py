@@ -208,6 +208,24 @@ def test_posterior_on_dense_raises(built):
         GWBPosterior(tcrn)
 
 
+def test_kron_none_takes_the_kron_path(monkeypatch):
+    """``kron=None`` is the reference's default gate, which takes the
+    kron path while ``$PINT_TPU_KRON_PHI`` is unset: the port takes it
+    too, with the same likelihood, and a posterior builds over it."""
+    monkeypatch.delenv("PINT_TPU_KRON_PHI", raising=False)
+    jpairs = _square()
+    add_gwb([t for _, t in jpairs], [m for m, _ in jpairs], 5e-14, rng=7,
+            nmodes=NMODES)
+    tpairs = pta_case_from_arrays(pta_case_arrays(jpairs))
+    jcrn = JCommonProcess(jpairs, nmodes=NMODES, kron=None)
+    tcrn = CommonProcess(tpairs, nmodes=NMODES, kron=None, device=CPU)
+    assert jcrn._kron is True and tcrn.kron is True
+    for la, g in POINTS:
+        assert abs(tcrn.lnlike(la, g) / jcrn.lnlike(la, g) - 1) \
+            <= tol.GW_LNLIKE_REL, (la, g)
+    assert GWBPosterior(tcrn).ndim == 2 + 2 * len(tpairs)
+
+
 def test_crn_capacity_cuda_refuses_cpu_tensors():
     f64 = dict(dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):

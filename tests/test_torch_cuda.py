@@ -415,6 +415,54 @@ def test_k7_against_plain_and_deterministic(card, n, p):
             <= tol.WLS_WHITEN_REL
 
 
+@pytest.mark.parametrize("p", [1, 11, 31, 32])
+@pytest.mark.parametrize("g", [1, 256])
+@pytest.mark.parametrize("per_point_err", [False, True])
+def test_k7_tiles_against_plain_and_deterministic(card, p, g,
+                                                  per_point_err):
+    """K7 at N = 10007 (no whole number of row tiles), G = 1 (one
+    cooperative launch) and 256 (two launches), err shared (err_stride
+    0) or one row a point (N), a zero column: rw and, where the norms
+    are equal, Jn bit-identical to plain, the rest within
+    WLS_WHITEN_REL, bit-identical run to run; a point of the batch is
+    the unbatched call's bits (one tile cut, one order), and a J that
+    is not 16-byte aligned gives the same bits."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    n = 10_007
+    rng = np.random.default_rng(7 * p + g)
+    r = torch.tensor(rng.standard_normal((g, n)) * 1e-6, device=card)
+    J = torch.tensor(rng.standard_normal((g, n, p)) * 10.0 ** rng.uniform(
+        -8, 8, p), device=card)
+    J[:, :, p // 2] = 0.0
+    err = torch.tensor(rng.uniform(0.5, 2.0, (g, n) if per_point_err
+                                   else n) * 1e-6, device=card)
+    assert tl.K7.call("wls_whiten_cooperative", g, n, p) == (g == 1)
+    a = tl.wls_whiten_cuda(r, J, err)
+    b = tl.wls_whiten_cuda(r, J, err)
+    pl = tl.wls_whiten_plain(r, J, err)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+    assert torch.equal(a[0], pl[0])
+    assert torch.all(a[2][:, p // 2] == 1.0)
+    same = torch.all(a[2] == pl[2], dim=-1)
+    assert torch.equal(a[1][same], pl[1][same])
+    for x, q in zip(a[1:], pl[1:]):
+        assert tol.vector_rel(x.cpu().numpy(), q.cpu().numpy()) \
+            <= tol.WLS_WHITEN_REL
+    e0 = err[-1] if per_point_err else err
+    one = tl.wls_whiten_cuda(r[-1], J[-1], e0)
+    for x, y in zip(one, a):
+        assert torch.equal(x.view(torch.int64), y[-1].view(torch.int64))
+    buf = torch.empty(n * p + 1, dtype=torch.float64, device=card)
+    odd = buf[1:].view(n, p)
+    odd.copy_(J[-1])
+    assert odd.data_ptr() % 16 == 8
+    for x, y in zip(tl.wls_whiten_cuda(r[-1], odd, e0), one):
+        assert torch.equal(x.view(torch.int64), y.view(torch.int64))
+
+
 def test_wls_fit_from_par_tim_on_card(card):
     """WLSFitter from the committed par and tim on the card, one K7
     launch per iteration."""
@@ -874,7 +922,10 @@ def test_stream_on_card_counts_launches(card):
 
 
 @pytest.mark.parametrize("p,m2,n_noise,g", [(68, 28, 3, 2), (12, 10, 25, 64),
-                                            (5, 1, 0, 300), (169, 2, 1, 1)])
+                                            (5, 1, 0, 300), (169, 2, 1, 1),
+                                            (5, 3, 2, 1), (68, 28, 0, 4),
+                                            (68, 28, 3, 9), (101, 5, 2, 13),
+                                            (169, 2, 0, 9)])
 def test_k11_against_plain_and_deterministic(card, p, m2, n_noise, g):
     import chip_smoke
     from pint_tpu_torch import linalg as tl

@@ -6,8 +6,11 @@ arguments and returns a dict of times of the ``pint_tpu_torch`` it
 imports, on the inputs and under the timer (``queued_ms``) of this
 checkout: ``k5_wide_times`` (K5w and K5bw at the wide path's nb = 203,
 at nb = 470 with 16 chains x 4 pulsars and with 16 chains x 68
-pulsars, beside the plain backward) or ``k9_k6_times`` (a K9 step, a
-K6 draw).
+pulsars, beside the plain backward), ``k9_k6_times`` (a K9 step, a
+K6 draw) or ``k11_k7_times`` (K11 at the dense grid's chunk of 9
+points and at 4 points of a full-width array, and at P = 12, G = 512;
+K7 at the WLS fit's 10^4 x 11 and the WLS grid's 256 x 10^4 x 8; each
+with an exact checksum of its outputs' bits).
 
 Usage (on a machine with an NVIDIA GPU, from the repo root)::
 
