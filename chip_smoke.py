@@ -10,7 +10,7 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K11 and the wide forms K5w/K5bw, one nvcc per source, all started
+   (K1-K11, K11b and the wide forms K5w/K5bw, one nvcc per source, all started
    together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
@@ -88,6 +88,25 @@ the closing ``{"ok": true, ...}`` line is not printed:
     the prior; a 4-chain, 4-draw ``run_nuts`` with JAX's draws injected:
     positions within 1e-7 of the scales, lnprob and step sizes within
     1e-9 relative, the same accept decisions;
+11a. ``hmc dense``: the same posterior over the dense path
+    (``GWBPosterior(CommonProcess(pairs, nmodes=14, kron=False))``, K =
+    6188): lnprob and its gradient at the 8 theta against JAX's kron
+    answers and the card's own kron posterior, at the 2 theta of
+    ``pint_tpu_torch/data/pta68_500_hmc_dense.npz`` against JAX's dense
+    answers (1e-10 relative; 1e-10 of max|g|), -inf outside the prior,
+    the injected-draw run against JAX's (the limits of 11, the same
+    accept decisions); launches of K1, K3, K5, K5b, K11, K11b during the
+    path (K11, K11b > 0; K3, K5, K5b = 0); one gradient at 4 chains: its
+    wall, peak memory, busy share and device time by group (K11, K11b,
+    potrf, the Cholesky backward's solves and products);
+11b. ``k11b``: K11b (the backward of K11) against its plain version at
+    the dense posterior's own inputs at 4 and 8 chains and at P = 12,
+    G = 512, within ``tolerances.crn_capacity_bwd_limit`` of each
+    entry's sum of |terms|, bit-identical run to run; its time beside
+    the plain version and the bound (no PyTorch call computes it); K11
+    with a row of noise weights a point against its plain version, and
+    with equal rows bit-identical to K11 with the one shared row;
+    ptxas's report (a spill fails the phase);
 12. kernels K5 and K5b (per-pulsar capacity stage and its backward)
     against their plain versions on the card at the case's grams with
     16 chains of perturbed red-noise weights: within
@@ -219,7 +238,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     (the fit for K1 and K2, the WLS fit from par/tim for K7, the GLS
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
     K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
-    stream for K10, the dense CRN path for K11; K10's times at the
+    stream for K10, the dense CRN path for K11, the dense posterior for
+    K11b; K10's times at the
     fold's shape, K11's at the grid's chunk of 9 points), error
     against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
@@ -3247,8 +3267,8 @@ def phase_k11(crn):
         gram, phi_noise, orf, phi_gw = args
         g, m2 = phi_gw.shape
         p, kn, k = orf.shape[0], phi_noise.shape[0], gram.shape[0]
-        s1, l1 = crn_capacity_cuda(*args)
-        s2, l2 = crn_capacity_cuda(*args)
+        s1, l1, _ = crn_capacity_cuda(*args)
+        s2, l2, _ = crn_capacity_cuda(*args)
         sp, lp = crn_capacity_plain(*args)
         torch.cuda.synchronize()
         same = _bits_equal((s1, l1), (s2, l2))
@@ -3338,7 +3358,8 @@ def k11_k7_times():
                         ("k11 P12 G512",
                          lambda: k11_synthetic(12, 10, 25, 512))):
         args = args()
-        s, ld = tl.crn_capacity_cuda(*args)
+        # (S, logdet) first; a checkout before K11b returned no more
+        s, ld = tl.crn_capacity_cuda(*args)[:2]
         out[label] = {"checksum": _bits_checksum(s, ld)}
         del s, ld
         out[label]["ms"] = queued_ms(lambda: tl.crn_capacity_cuda(*args),
@@ -3356,6 +3377,293 @@ def k11_k7_times():
                 torch.tensor(rng.uniform(0.5, 2.0, n) * 1e-6, device="cuda"))
         out[label] = {"checksum": _bits_checksum(*tl.wls_whiten_cuda(*args)),
                       "ms": queued_ms(partial(tl.wls_whiten_cuda, *args))}
+    return out
+
+
+def k11b_synthetic(p, m2, n_noise, g, seed=12):
+    """K11b's inputs (gS, gld, phi_noise (G, kn), phi_gw, M) on the
+    card: :func:`k11_synthetic`'s prior with each point's own noise
+    weights (the shared row times 10^u, u uniform in [-1, 1]), the GW
+    blocks' inverses M from K11, and seeded normal cotangents."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+
+    gram, pn, orf, pg = k11_synthetic(p, m2, max(n_noise, 1), g, seed)
+    if n_noise == 0:  # no noise columns: the GW sector alone
+        k = p * m2
+        gram, pn = gram[-k:, -k:].contiguous(), pn[:0]
+    gen = torch.Generator("cuda").manual_seed(seed)
+    f64 = dict(dtype=torch.float64, device="cuda")
+    pn = pn[None, :] * 10.0 ** (2.0 * torch.rand(
+        (g, pn.numel()), generator=gen, **f64) - 1.0)
+    _, _, M = tl.crn_capacity_cuda(gram, pn, orf, pg)
+    k = gram.shape[0]
+    return (torch.randn((g, k, k), generator=gen, **f64),
+            torch.randn(g, generator=gen, **f64), pn, pg, M)
+
+
+def k11b_compare(args):
+    """K11b twice against its plain version on the same card tensors:
+    run-to-run bit identity, the largest error over each entry's limit
+    (``tolerances.crn_capacity_bwd_limit`` of its sum of |terms|), the
+    largest absolute error, and whether the noise cotangents are
+    bit-identical."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    gS, gld, pn, pg, M = args
+    a = tl.crn_capacity_bwd_cuda(*args)
+    b = tl.crn_capacity_bwd_cuda(*args)
+    plain = tl.crn_capacity_bwd_plain(*args)
+    abs_sum = tl.crn_capacity_bwd_plain(-gS.abs(), gld.abs(), pn, pg,
+                                        M.abs())
+    lim = tol.crn_capacity_bwd_limit(M.shape[-1])
+
+    def worst(x, y, s):  # 0 / 0 (no terms, no error) counts as 0
+        if not x.numel():
+            return 0.0
+        return float(torch.max(torch.nan_to_num(
+            torch.abs(x - y) / (lim * s), nan=0.0)))
+    over = max(worst(x, y, s) for x, y, s in zip(a, plain, abs_sum))
+    torch.cuda.synchronize()
+    return {"run_to_run": _bits_equal(a, b), "err_over_limit": over,
+            "limit_per_abs_sum": lim,
+            "max_abs_err": max(float(torch.max(torch.abs(x - y)))
+                               if x.numel() else 0.0
+                               for x, y in zip(a, plain)),
+            "noise_bit_identical": _bits_equal(a[:1], plain[:1])}
+
+
+def _k11b_path_inputs(post, theta):
+    """K11b's inputs as the dense posterior's gradient at ``theta`` gives
+    them (the launcher's arguments, recorded on the way)."""
+    from pint_tpu_torch import linalg as tl
+
+    got = []
+    real = tl.crn_capacity_bwd_cuda
+
+    def spy(*args):
+        got.append(args)
+        return real(*args)
+    tl.crn_capacity_bwd_cuda = spy
+    try:
+        post.value_and_grad(theta)
+    finally:
+        tl.crn_capacity_bwd_cuda = real
+    return tuple(t.detach() for t in got[-1])
+
+
+def phase_hmc_dense(pairs, kron_post, ref, dref):
+    """The dense GWB posterior on the 68-pulsar case (``GWBPosterior(
+    CommonProcess(pairs, nmodes=14, kron=False))``, K = 6188, 138
+    dimensions): lnprob and its gradient at the HMC case's 8 theta
+    against JAX's kron values and the card's own kron posterior, at the
+    dense file's 2 theta against JAX's dense values, -inf outside the
+    prior, the injected-draw run against JAX's; K11 and K11b run, K3 and
+    K5 do not; the wall of one gradient at 4 chains and where its device
+    time goes."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.gw.hmc import GWBPosterior, run_nuts
+    from pint_tpu_torch.linalg import K3, K5, K5B, K11, K11B
+
+    kernels = {"K1": K1, "K3": K3, "K5": K5, "K5b": K5B, "K11": K11,
+               "K11b": K11B}
+    kw = {k: int(ref[f"run_{k}"]) for k in (
+        "n_chains", "num_warmup", "num_samples", "chunk", "num_leapfrog",
+        "seed")}
+    th = torch.as_tensor(ref["theta"], device="cuda")
+    thd = torch.as_tensor(dref["theta"], device="cuda")
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    post = GWBPosterior(CommonProcess(pairs, nmodes=int(ref["nmodes"]),
+                                      kron=False, device="cuda"))
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    lnp, g = (a.cpu().numpy() for a in post.value_and_grad(th))
+    lnp_d, g_d = (a.cpu().numpy() for a in post.value_and_grad(thd))
+    t0 = time.time()
+    res = run_nuts(post, draws=(ref["draw_z"], ref["draw_n_steps"],
+                                ref["draw_u"]), **kw)
+    t_run = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    log(f"hmc dense: launches during the path {launches} (K "
+        f"{post.crn.dense.gram.shape[0]}, ndim {post.ndim}; 8 + 2 theta, "
+        f"then {kw})")
+    if post.param_names != [str(n) for n in ref["param_names"]] \
+            or not np.array_equal(post.bounds, ref["bounds"]) \
+            or not np.array_equal(post.scales, ref["scales"]):
+        raise AssertionError("hmc dense: layout, bounds or scales differ "
+                             "from JAX")
+    fin = np.isfinite(ref["lnprob"])
+    lk, gk = (a.cpu().numpy() for a in kron_post.value_and_grad(th))
+
+    def rel(lnp_got, g_got, lnp_ref, g_ref):
+        return (float(np.max(np.abs(lnp_got / lnp_ref - 1))),
+                max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                    for a, b in zip(g_got, g_ref)))
+    errs = {}
+    errs["lnp_vs_jax_kron"], errs["grad_vs_jax_kron"] = rel(
+        lnp[fin], g[fin], ref["lnprob"][fin], ref["grad"][fin])
+    errs["lnp_vs_card_kron"], errs["grad_vs_card_kron"] = rel(
+        lnp[fin], g[fin], lk[fin], gk[fin])
+    errs["lnp_vs_jax_dense"], errs["grad_vs_jax_dense"] = rel(
+        lnp_d, g_d, dref["dense_lnprob"], dref["dense_grad"])
+    oob = bool(np.any(~fin)) and bool(np.all(lnp[~fin] == -np.inf))
+    sc = post.scales
+    run = {
+        "samples_scales": float(np.max(np.abs(
+            (res.samples - ref["run_samples"]) / sc))),
+        "warmup_scales": float(np.max(np.abs(
+            (res.warmup_samples - ref["run_warmup_samples"]) / sc))),
+        "lnp_rel": float(np.max(np.abs(res.lnprob / ref["run_lnprob"]
+                                       - 1))),
+        "step_size_rel": float(np.max(np.abs(
+            res.step_size / ref["run_step_size"] - 1)))}
+    same = bool(np.array_equal(res.accepted, ref["run_accepted"]))
+    log("hmc dense: observed " + json.dumps(errs) + f" (limits lnp "
+        f"{tol.GW_LNLIKE_REL:g}, gradient {tol.HMC_GRAD_REL:g} of max|g|; "
+        f"JAX's own kron-vs-dense gradient {dref['grad_rel'].tolist()}); "
+        f"outside the prior -inf {oob}; lnprob {lnp.tolist()}")
+    log(f"hmc dense: injected-draw run: largest deviations "
+        + json.dumps(run) + f" (limits {tol.HMC_PATH_SCALES:g} in scales, "
+        f"{tol.HMC_LNP_REL:g} rel); accept decisions identical to JAX's "
+        f"{same} ({res.accepted.astype(int).tolist()}); run {t_run:.2f} s, "
+        f"build {t_build:.2f} s")
+    bad = [k for k, v in errs.items() if not v <= (
+        tol.GW_LNLIKE_REL if k.startswith("lnp") else tol.HMC_GRAD_REL)]
+    bad += [k for k, v in run.items() if not v <= (
+        tol.HMC_PATH_SCALES if k.endswith("scales") else tol.HMC_LNP_REL)]
+    if bad or not (oob and same):
+        raise AssertionError(f"hmc dense fails: {bad}, oob {oob}, accept "
+                             f"decisions {same}")
+    if not (launches["K11"] > 0 and launches["K11b"] > 0
+            and launches["K3"] == launches["K5"] == launches["K5b"] == 0):
+        raise AssertionError(f"hmc dense: the path's kernels {launches}")
+    # one gradient at 4 chains, warm: its wall, peak memory and device
+    # time by group
+    th4 = th[:4]
+
+    def grad4():
+        post.value_and_grad(th4)
+        torch.cuda.synchronize()
+    grad4()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    for _ in range(3):
+        grad4()
+    wall = (time.time() - t0) / 3
+    peak = torch.cuda.max_memory_allocated()
+    busy, dev_ms, shares = trace_breakdown(grad4, wall, "hmc_dense_grad", {
+        "K11": ["crn_gw_block", "crn_copy", "crn_logdet"],
+        "K11b": ["crn_capacity_bwd"],
+        "cuSOLVER potrf": ["potrf", "syrk", "getrf_wo_pivot"],
+        "triangular solves (trsm, trsv)": ["trsm", "trsv"],
+        "gemm (the Cholesky backward's products)": ["gemm"],
+        "ATen elementwise and copies": ["at::native"]})
+    rates = {"grad_4_chains_wall_s": wall, "device_ms": dev_ms,
+             "busy": busy, "shares": shares,
+             "peak_gib": peak / 2**30, "held_before_gib": base / 2**30,
+             "build_s": t_build, "run_s": t_run}
+    log("hmc dense: one gradient at 4 chains " + json.dumps(rates))
+    return {"launches": launches, "post": post, "errs": errs, "run": run,
+            "rates": rates}
+
+
+def phase_k11b(post, ref):
+    """K11b against its plain version on the card at the dense
+    posterior's own inputs (4 and 8 chains of the HMC case, K = 6188) and
+    at P = 12, G = 512: within ``tolerances.crn_capacity_bwd_limit`` of
+    each entry's sum of |terms|, bit-identical run to run; its time
+    beside the plain version and the bound.  K11 with per-point noise
+    weights (the posterior's 4 chains) against its plain version, and
+    with every point's row equal, bit-identical to K11 with the one
+    shared row."""
+    import torch
+
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.models.noise import gwb_phi
+
+    th = torch.as_tensor(ref["theta"], device="cuda")
+    cases = {"posterior G4": lambda: _k11b_path_inputs(post, th[:4]),
+             "posterior G8": lambda: _k11b_path_inputs(post, th),
+             "small P G512": lambda: k11b_synthetic(12, 10, 25, 512)}
+    out = {}
+    for label, make in cases.items():
+        args = make()
+        gS, gld, pn, pg, M = args
+        g, m2 = pg.shape
+        p, k = M.shape[-1], gS.shape[-1]
+        kn = k - p * m2
+        row = {"G": g, "K": k, "kn": kn, "P": p, "m2": m2,
+               **k11b_compare(args)}
+        log(f"k11b {label}: " + json.dumps(row))
+        if not (row["run_to_run"] and row["err_over_limit"] <= 1.0):
+            raise AssertionError(f"K11b disagrees with its plain version "
+                                 f"at {label}")
+        row["ms"], row["timed_by"] = kernel_ms(
+            lambda: tl.crn_capacity_bwd_cuda(*args), reps=50)
+        row["plain_ms"] = queued_ms(
+            lambda: tl.crn_capacity_bwd_plain(*args), reps=10)
+        # no PyTorch call computes the weights' cotangents from gS
+        row["library_ms"] = None
+        # gS's kn diagonal and m2 P^2 block entries, M's m2 P^2 entries,
+        # the weights and gld read once, the cotangents written once; a
+        # product and a sum a block entry (M symmetrized: two more),
+        # ~10 operations a noise entry, scalar fp64
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            8 * g * (kn + 2 * m2 * p * p + kn + m2 + 1 + kn + m2),
+            g * (4 * m2 * p * p + 2 * m2 + 10 * kn), FP64_FLOPS)
+        out[label] = row
+        log(f"k11b {label} times: " + json.dumps(row))
+        del args, gS, M
+        torch.cuda.empty_cache()
+    # K11 with a row of noise weights a point: the posterior's 4 chains
+    dd = post.crn.dense
+    th4 = torch.clamp(th[:4], post._lo, post._hi)
+    pn = post.crn.dense_noise(post.phi_noise_at(th4))
+    pg = gwb_phi(post.crn.freqs, 10.0 ** th4[:, 0:1], th4[:, 1:2],
+                 post.crn.df)
+    s1, l1, _ = tl.crn_capacity_cuda(dd.gram, pn, dd.orf, pg)
+    s2, l2, _ = tl.crn_capacity_cuda(dd.gram, pn, dd.orf, pg)
+    same = _bits_equal((s1, l1), (s2, l2))
+    del s2, l2
+    sp, lp = tl.crn_capacity_plain(dd.gram, pn, dd.orf, pg)
+    err_s = max(float(torch.max(torch.abs(s1[i] - sp[i]))
+                      / torch.max(torch.abs(sp[i]))) for i in range(4))
+    err_ld = max(float(torch.abs(l1[i] - lp[i])
+                       / (sp.shape[-1] + torch.abs(lp[i])))
+                 for i in range(4))
+    del sp, lp
+    lim = tol.crn_capacity_limit(dd.orf.shape[0], tol.crn_block_kappa(
+        dd.orf.cpu().numpy(), pg.cpu().numpy()))
+    # every point's row equal: the same bits as the one shared row
+    s3, l3, _ = tl.crn_capacity_cuda(
+        dd.gram, pn[0].expand(4, -1).contiguous(), dd.orf, pg)
+    s4, l4, _ = tl.crn_capacity_cuda(dd.gram, pn[0], dd.orf, pg)
+    stride_same = _bits_equal((s3, l3), (s4, l4))
+    del s1, s3, s4
+    torch.cuda.empty_cache()
+    row = {"run_to_run": same, "max_S_rel": err_s, "max_logdet_rel": err_ld,
+           "limit": lim, "rows_equal_bits_as_shared_row": stride_same}
+    log("k11 per-point noise weights G4: " + json.dumps(row))
+    if not (same and stride_same and err_s <= lim and err_ld <= lim):
+        raise AssertionError("K11 with per-point noise weights disagrees")
+    out["k11 per point"] = row
+    rep = build_report(tl.K11B, ("crn_capacity_bwd_kernel",))
+    log("k11b ptxas: " + json.dumps(rep))
+    out.update(rep)
     return out
 
 
@@ -3702,6 +4010,20 @@ def main():
                        "pint_tpu/gw/hmc.py:365", n["K6"], k6)]
         else:
             table = None
+        from pint_tpu_torch.convert import HMC_DENSE_ANSWERS
+
+        hmc_d = run("hmc dense", phase_hmc_dense, pairs, hmc["post"],
+                    load_hmc_reference(), load_arrays(HMC_DENSE_ANSWERS))
+        k11b = run("k11b", phase_k11b, hmc_d["post"],
+                   load_hmc_reference()) if hmc_d else None
+        if table is not None and k11b is not None:
+            table.append(gw_row("crn_capacity_bwd", "crn_capacity.cu",
+                                "pint_tpu/gw/hmc.py:270",
+                                hmc_d["launches"]["K11b"],
+                                k11b["posterior G4"]))
+        else:
+            table = None
+        hmc_d = None
     else:
         table = None
     wide = run("wide case", phase_wide_case)

@@ -71,6 +71,10 @@ PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"
 #: pta68_500 array (``tools/export_torch_crn_dense_case.py``)
 CRN_DENSE_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "crn_dense_answers.npz"
+#: the JAX CPU answers of the dense GWB posterior on the pta68_500 array
+#: at two theta of the HMC case (``tools/export_torch_hmc_dense_case.py``)
+HMC_DENSE_ANSWERS = Path(__file__).resolve().parent / "data" \
+    / "pta68_500_hmc_dense.npz"
 
 #: component class -> constructor arguments the spec may carry
 _COMPONENTS = {

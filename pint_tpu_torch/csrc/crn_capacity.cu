@@ -9,7 +9,12 @@
 // against the identity, logdet = 2 sum log diag L), and :265 _capacity's
 // add onto the gram G0 = U^T N^-1 U.  For G points it writes
 //
-//   S_g = G0 + phi_g^-1   (G, K, K)    and    logdet phi_g   (G,).
+//   S_g = G0 + phi_g^-1   (G, K, K)    and    logdet phi_g   (G,),
+//
+// phi_noise one row for every point (the grid) or a row a point (the
+// posterior's chains, each with its own red-noise weights).  The GW
+// blocks' inverses M stay in a scratch of the caller's, which K11b (at
+// the end of this file) reads for the gradient.
 //
 // Structure.  Up to a permutation the prior is diagonal on the kn noise
 // columns and, on the GW sector, m2 independent P x P blocks
@@ -47,7 +52,8 @@
 //   allow them) and stored to every point's row with streaming stores
 //   (st.global.cs), so that S does not push G0 out of L2.  A noise
 //   row's diagonal gets the jittered reciprocal (1 / s) / s, s =
-//   sqrt(phi'), computed once per row: the arithmetic of a Cholesky and
+//   sqrt(phi'), computed once per row (per row and point where each
+//   point has its own weights): the arithmetic of a Cholesky and
 //   two triangular solves on a diagonal entry; a GW row's entry (kn + b
 //   m2 + k) of point g gets M_ab of block (k, g).
 // Order: the blocks and then the copy of the GW x GW quadrant (the
@@ -82,6 +88,14 @@
 #define UNROLL 4
 // copy blocks resident at once (8 a streaming multiprocessor)
 #define COPY_BLOCKS 1056
+
+// a noise column's entry of phi^-1: the jittered weight's Cholesky
+// pivot s = sqrt(phi'), inverted by two triangular solves, (1 / s) / s
+__device__ __forceinline__ double noise_inverse(double p) {
+  const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
+  const double s = sqrt(pp);
+  return (1.0 / s) / s;
+}
 
 __global__ void __launch_bounds__(THREADS) crn_gw_block_kernel(
     const double* __restrict__ orf, const double* __restrict__ phi_gw,
@@ -199,7 +213,8 @@ template <bool VEC, bool GW>
 __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
     const double* __restrict__ g0, const double* __restrict__ phi_noise,
     const double* __restrict__ Mg, double* __restrict__ S, int64_t G,
-    int64_t K, int64_t kn, int P, int m2, int64_t r0, int64_t r1) {
+    int64_t K, int64_t kn, int64_t ns, int P, int m2, int64_t r0,
+    int64_t r1) {
   const int64_t PP = (int64_t)P * P;
   for (int64_t r = r0 + blockIdx.x; r < r1; r += gridDim.x) {
     double add = 0.0;
@@ -208,10 +223,7 @@ __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
       a = (int)(r - kn) / m2;
       k = (int)(r - kn) - a * m2;
     } else if (r < kn) {
-      const double p = phi_noise[r];
-      const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
-      const double s = sqrt(pp);
-      add = (1.0 / s) / s;
+      add = noise_inverse(phi_noise[r]);
     }
     // M_ab of point g at Mg[g m2 P^2 + mrow + b]
     const int64_t mrow = ((int64_t)k * P + a) * P;
@@ -229,10 +241,7 @@ __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
           const int64_t q = q0 + u * THREADS + threadIdx.x;
           v[u] = q < n2 ? s2[q] : make_double2(0.0, 0.0);
           bx[u] = by[u] = -1;
-          if (!GW) {
-            if (2 * q == r) v[u].x = v[u].x + add;
-            if (2 * q + 1 == r) v[u].y = v[u].y + add;
-          } else {
+          if (GW) {
             const int c = (int)(2 * q - kn);
             if (c % m2 == k) bx[u] = c / m2;
             if ((c + 1) % m2 == k) by[u] = (c + 1) / m2;
@@ -241,11 +250,15 @@ __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
         for (int64_t g = blockIdx.y; g < G; g += gridDim.y) {
           double2* d2 = reinterpret_cast<double2*>(S + (g * K + r) * K);
           const double* M = Mg + g * m2 * PP + mrow;
+          const double ag =
+              !GW && ns && r < kn ? noise_inverse(phi_noise[g * ns + r]) : add;
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
             const int64_t q = q0 + u * THREADS + threadIdx.x;
             if (q < n2) {
               double2 w = v[u];
+              if (!GW && 2 * q == r) w.x = w.x + ag;
+              if (!GW && 2 * q + 1 == r) w.y = w.y + ag;
               if (GW && bx[u] >= 0) w.x = w.x + M[bx[u]];
               if (GW && by[u] >= 0) w.y = w.y + M[by[u]];
               __stcs(d2 + q, w);
@@ -262,17 +275,20 @@ __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
           const int64_t c = c0 + u * THREADS + threadIdx.x;
           v[u] = c < ce ? src[c] : 0.0;
           bx[u] = -1;
-          if (!GW && c == r) v[u] = v[u] + add;
           if (GW && c < ce && (int)(c - kn) % m2 == k)
             bx[u] = (int)(c - kn) / m2;
         }
         for (int64_t g = blockIdx.y; g < G; g += gridDim.y) {
           double* d = S + (g * K + r) * K;
           const double* M = Mg + g * m2 * PP + mrow;
+          const double ag =
+              !GW && ns && r < kn ? noise_inverse(phi_noise[g * ns + r]) : add;
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u) {
             const int64_t c = c0 + u * THREADS + threadIdx.x;
-            if (c < ce) __stcs(d + c, bx[u] >= 0 ? v[u] + M[bx[u]] : v[u]);
+            if (c < ce)
+              __stcs(d + c, bx[u] >= 0 ? v[u] + M[bx[u]]
+                            : !GW && c == r ? v[u] + ag : v[u]);
           }
         }
       }
@@ -282,12 +298,12 @@ __global__ void __launch_bounds__(THREADS, 5) crn_copy_kernel(
 
 __global__ void __launch_bounds__(THREADS) crn_logdet_kernel(
     const double* __restrict__ phi_noise, const double* __restrict__ ld_blk,
-    double* __restrict__ ld, int kn, int m2) {
+    double* __restrict__ ld, int kn, int64_t ns, int m2) {
   __shared__ double part[THREADS];
   const int g = blockIdx.x, tid = threadIdx.x;
   double s = 0.0;
   for (int r = tid; r < kn; r += THREADS) {
-    const double p = phi_noise[r];
+    const double p = phi_noise[g * ns + r];
     const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
     s = s + log(sqrt(pp));
   }
@@ -314,8 +330,9 @@ extern "C" int crn_capacity_smem(int64_t P) {
 template <bool GW>
 static cudaError_t copy_rows(const void* g0, const void* phi_noise,
                              const void* Mg, void* S, int64_t G, int64_t K,
-                             int64_t kn, int64_t P, int64_t m2, int64_t r0,
-                             int64_t r1, int64_t cap, cudaStream_t s) {
+                             int64_t kn, int64_t ns, int64_t P, int64_t m2,
+                             int64_t r0, int64_t r1, int64_t cap,
+                             cudaStream_t s) {
   if (r1 <= r0) return cudaSuccess;
   // a row a block, the points split over gridDim.y only where the rows
   // are too few to fill the card
@@ -338,11 +355,11 @@ static cudaError_t copy_rows(const void* g0, const void* phi_noise,
   if (vec)
     crn_copy_kernel<true, GW><<<grid, THREADS, 0, s>>>(
         (const double*)g0, (const double*)phi_noise, (const double*)Mg,
-        (double*)S, G, K, kn, (int)P, (int)m2, r0, r1);
+        (double*)S, G, K, kn, ns, (int)P, (int)m2, r0, r1);
   else
     crn_copy_kernel<false, GW><<<grid, THREADS, 0, s>>>(
         (const double*)g0, (const double*)phi_noise, (const double*)Mg,
-        (double*)S, G, K, kn, (int)P, (int)m2, r0, r1);
+        (double*)S, G, K, kn, ns, (int)P, (int)m2, r0, r1);
   return cudaGetLastError();
 }
 
@@ -379,14 +396,16 @@ static int side_of(int dev, Side** out) {
   return 0;
 }
 
-// Mg: G m2 P^2 doubles of scratch
+// Mg: G m2 P^2 doubles, each GW block's inverse (K11b reads them);
+// phi_noise: point g's weights at g ns (ns = 0: one row for every point)
 extern "C" int crn_capacity_launch(const void* g0, const void* phi_noise,
                                    const void* orf, const void* phi_gw,
                                    void* S, void* ld, void* ld_blk, void* Mg,
                                    int64_t G, int64_t K, int64_t kn,
-                                   int64_t P, int64_t m2, void* stream) {
+                                   int64_t ns, int64_t P, int64_t m2,
+                                   void* stream) {
   if (G < 1 || G > 65535 || P < 1 || m2 < 1 || kn < 0 || K != kn + P * m2 ||
-      K >= (1LL << 31))
+      K >= (1LL << 31) || (ns != 0 && ns != kn))
     return (int)cudaErrorInvalidValue;
   const int smem = crn_capacity_smem(P);
   if (!smem) return (int)cudaErrorInvalidValue;
@@ -412,15 +431,134 @@ extern "C" int crn_capacity_launch(const void* g0, const void* phi_noise,
       (const double*)orf, (const double*)phi_gw, (double*)Mg,
       (double*)ld_blk, (int)P, (int)m2);
   if ((err = cudaGetLastError()) != cudaSuccess ||
-      (err = copy_rows<true>(g0, phi_noise, Mg, S, G, K, kn, P, m2, kn, K, 0,
-                             side->stream)) != cudaSuccess ||
+      (err = copy_rows<true>(g0, phi_noise, Mg, S, G, K, kn, ns, P, m2, kn,
+                             K, 0, side->stream)) != cudaSuccess ||
       (err = cudaEventRecord(side->out, side->stream)) != cudaSuccess ||
-      (err = copy_rows<false>(g0, phi_noise, Mg, S, G, K, kn, P, m2, 0, K,
-                              2 * (int64_t)side->sms, s)) != cudaSuccess ||
+      (err = copy_rows<false>(g0, phi_noise, Mg, S, G, K, kn, ns, P, m2, 0,
+                              K, 2 * (int64_t)side->sms, s)) != cudaSuccess ||
       (err = cudaStreamWaitEvent(s, side->out, 0)) != cudaSuccess)
     return (int)err;
   crn_logdet_kernel<<<(unsigned)G, THREADS, 0, s>>>(
       (const double*)phi_noise, (const double*)ld_blk, (double*)ld, (int)kn,
-      (int)m2);
+      ns, (int)m2);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Kernel K11b: the backward of K11.
+//
+// Replaces the jax.grad that pint_tpu/gw/hmc.py:270 _dense_chi2_logdet's
+// gradient takes through the dense prior's inverse and logdet
+// (pint_tpu/linalg.py:223 _phi_terms, 2-D branch).  Given the cotangents
+// gS (G, K, K) of S_g = G0 + phi_g^-1 and gld (G,) of logdet phi_g it
+// writes those of the noise weights, gpn (G, kn), and of the GW powers,
+// ggw (G, m2):
+//
+//   noise column j, phi' = phi_j + 1e-12 (|phi_j| + 1e-30):
+//     gpn_j = (gld / phi' - gS_jj / phi'^2) (1 + 1e-12 sign phi_j);
+//   GW block f, B_f = phi_gw,f orf + 1e-12 diag(|phi_gw,f orf_aa| + 1e-30)
+//   = phi_gw,f W + 1e-42 I, W = dB_f / dphi_gw,f, M_f = B_f^-1 (K11's
+//   scratch, kept for this), gM_f the block of gS on the rows and columns
+//   kn + a m2 + f: with gB_f = gld M_f - M_f sym(gM_f) M_f,
+//     ggw_f = <gB_f, W> = (gld P - sum_ab gM_f[a, b] sym(M_f)[a, b])
+//             / phi_gw,f,
+//   less 1e-42 tr(gB_f) / phi_gw,f, which is left out (below 1e-42
+//   ||M_f|| of the rest; linalg.crn_capacity_bwd_plain says why).
+//
+// Bound on an H100 SXM.  A gather and a dot product: it reads gS's kn
+// diagonal and m2 P^2 block entries a point, M's m2 P^2 and the weights,
+// ~2.1 MB a point at the posterior's shapes (G = 4 chains, K = 6188, P =
+// 68, m2 = 28), ~2.6 us for 4 points at 3.35 TB/s.  The gathered entries
+// lie m2 doubles apart along a row, so each costs a 32-byte sector.
+//
+// Design.  One launch, grid (m2 + ceil(kn / T), G) of T threads, T the
+// whole warps that P^2 entries need, at most 512: block (f < m2, g) sums
+// gM_f[a, b] (M_f[a, b] + M_f[b, a]) / 2 over its P^2 entries, each
+// thread a strided run in ascending order with BWD_BATCH gathered loads
+// issued before it adds them, then a fixed shuffle tree a warp and the
+// warps in order; the blocks past m2 take a noise entry a thread.  gS
+// is read once an entry, M twice (a row and a column of a 37 kB block,
+// from cache).  The gathered sectors' rate from memory sets the time (8
+// chains take twice the time of 4), not the loads in flight.  No
+// atomics: bit-identical from run to run.  Any P that K11 takes.
+// ---------------------------------------------------------------------------
+
+// the most threads a K11b block has; a thread's gathered entries in flight
+#define BWD_THREADS 512
+#define BWD_BATCH 8
+
+__global__ void __launch_bounds__(BWD_THREADS) crn_capacity_bwd_kernel(
+    const double* __restrict__ gS, const double* __restrict__ gld,
+    const double* __restrict__ phi_noise, const double* __restrict__ phi_gw,
+    const double* __restrict__ Mg, double* __restrict__ gpn,
+    double* __restrict__ ggw, int64_t K, int64_t kn, int64_t ns, int P,
+    int m2) {
+  __shared__ double part[BWD_THREADS / 32];
+  const int64_t g = blockIdx.y;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const double* gs = gS + g * K * K;
+  const double lb = gld[g];
+  if ((int)blockIdx.x >= m2) {  // a noise entry a thread
+    const int64_t j = (int64_t)(blockIdx.x - m2) * nt + tid;
+    if (j < kn) {
+      const double p = phi_noise[g * ns + j];
+      const double pp = p + JITTER * (fabs(p) + PHI_FLOOR);
+      const double d = gs[j * K + j];
+      const double dp = 1.0 + (p >= 0.0 ? JITTER : -JITTER);
+      gpn[g * kn + j] = (lb / pp - d / (pp * pp)) * dp;
+    }
+    return;
+  }
+  const int f = blockIdx.x;
+  const int pp2 = P * P;
+  const double* M = Mg + (g * m2 + f) * (int64_t)pp2;
+  double s = 0.0;
+  for (int e0 = tid; e0 < pp2; e0 += nt * BWD_BATCH) {
+    // every gathered load of the batch issued before the first add
+    double x[BWD_BATCH], w[BWD_BATCH];
+#pragma unroll
+    for (int u = 0; u < BWD_BATCH; ++u) {
+      const int e = e0 + u * nt;
+      x[u] = w[u] = 0.0;
+      if (e < pp2) {
+        const int a = e / P, b = e - a * P;
+        x[u] = gs[(kn + (int64_t)a * m2 + f) * K + kn + (int64_t)b * m2 + f];
+        w[u] = 0.5 * (M[e] + M[b * P + a]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < BWD_BATCH; ++u) s = s + x[u] * w[u];
+  }
+  // a fixed shuffle tree a warp, then the warps in order
+  for (int o = 16; o > 0; o >>= 1) s = s + __shfl_down_sync(~0u, s, o);
+  if ((tid & 31) == 0) part[tid >> 5] = s;
+  __syncthreads();
+  if (tid == 0) {
+    double t = 0.0;
+    for (int w = 0; w < nt >> 5; ++w) t = t + part[w];
+    ggw[g * m2 + f] = (lb * (double)P - t) / phi_gw[g * m2 + f];
+  }
+}
+
+// gS (G, K, K), gld (G,), phi_noise (point g's at g ns), phi_gw (G, m2),
+// Mg (G, m2, P, P) from crn_capacity_launch; writes gpn (G, kn) and ggw
+// (G, m2)
+extern "C" int crn_capacity_bwd_launch(
+    const void* gS, const void* gld, const void* phi_noise,
+    const void* phi_gw, const void* Mg, void* gpn, void* ggw, int64_t G,
+    int64_t K, int64_t kn, int64_t ns, int64_t P, int64_t m2,
+    void* stream) {
+  if (G < 1 || G > 65535 || P < 1 || m2 < 1 || kn < 0 || K != kn + P * m2 ||
+      K >= (1LL << 31) || P * P >= (1LL << 31) || (ns != 0 && ns != kn))
+    return (int)cudaErrorInvalidValue;
+  // whole warps, as many as a block's P^2 entries need, at most 16
+  const int64_t nt =
+      P * P >= BWD_THREADS ? BWD_THREADS : (P * P + 31) / 32 * 32;
+  const int64_t nx = m2 + (kn + nt - 1) / nt;
+  crn_capacity_bwd_kernel<<<dim3((unsigned)nx, (unsigned)G), (unsigned)nt,
+                            0, (cudaStream_t)stream>>>(
+      (const double*)gS, (const double*)gld, (const double*)phi_noise,
+      (const double*)phi_gw, (const double*)Mg, (double*)gpn, (double*)ggw,
+      K, kn, ns, (int)P, (int)m2);
   return (int)cudaGetLastError();
 }

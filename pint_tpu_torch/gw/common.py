@@ -34,6 +34,7 @@ from pint_tpu_torch.fitter import FitDivergedError
 from pint_tpu_torch.gw.orf import orf_matrix, pulsar_positions
 from pint_tpu_torch.linalg import (KronGram, KronPhi, RaggedStack,
                                    cho_factor, cho_solve, crn_capacity,
+                                   kron_chi2_logdet_pre,
                                    kron_gram_precompute, kron_gw_terms,
                                    kron_pulsar_terms, ragged_stack,
                                    su_to_dense)
@@ -165,16 +166,22 @@ class KronData(NamedTuple):
     orf: torch.Tensor
 
 
+def padded_phi(data: List[PulsarGWData], device) -> torch.Tensor:
+    """(P, nb_max): each pulsar's noise weights, zero-padded to the
+    widest pulsar's."""
+    phi = np.zeros((len(data), max(len(d.phi) for d in data)))
+    for a, d in enumerate(data):
+        phi[a, :len(d.phi)] = d.phi
+    return torch.as_tensor(phi, device=device)
+
+
 def kron_data(data: List[PulsarGWData], orf, device) -> KronData:
     """The :class:`KronData` of ``data`` on ``device``; launches K3 once
     on CUDA."""
     st = ragged_stack([d.r for d in data], [d.sigma for d in data],
                       [d.U for d in data], [d.F for d in data], device)
-    phi = np.zeros((len(data), st.nb_max))
-    for a, d in enumerate(data):
-        phi[a, :len(d.phi)] = d.phi
     return KronData(stack=st, gram=kron_gram_precompute(st),
-                    phi_noise=torch.as_tensor(phi, device=device),
+                    phi_noise=padded_phi(data, device),
                     orf=torch.as_tensor(np.asarray(orf, np.float64),
                                         device=device))
 
@@ -182,7 +189,8 @@ def kron_data(data: List[PulsarGWData], orf, device) -> KronData:
 class DenseData(NamedTuple):
     """What the dense path holds once: the gram G0 = U_full^T N^-1 U_full
     (K, K), b = U_full^T N^-1 r (K,), r^T N^-1 r, sum log sigma^2, the
-    stacked noise weights (kn,) and the ORF."""
+    stacked noise weights (kn,), the ORF, and where each noise column's
+    weight lies in the flattened (P, nb_max) padded rows (kn,)."""
 
     gram: torch.Tensor
     b: torch.Tensor
@@ -190,6 +198,29 @@ class DenseData(NamedTuple):
     ld_white: torch.Tensor
     phi_noise: torch.Tensor
     orf: torch.Tensor
+    noise_cols: torch.Tensor
+
+
+def dense_chi2_logdet(dd: DenseData, phi_noise, phi_gw):
+    """(chi2 (G,), logdet C (G,)): the reference's dense Woodbury
+    (pint_tpu gw/common.py:186 and linalg.py:288) at G points, the dense
+    grid's and the dense posterior's: K11's capacity matrices G0 +
+    phi_g^-1, then per point one Cholesky and one solve against b,
+    chi2 = rr - b^T x and logdet = ld_white + logdet phi + 2 sum log
+    diag L.  ``phi_noise`` (kn,) is shared by every point, (G, kn) is a
+    row a point; ``phi_gw`` is (G, m2).  Differentiable in both (K11b;
+    the Cholesky's and the solve's gradients are PyTorch's).  One point
+    at a time: the libraries' batched Cholesky and solve are built for
+    small matrices (at K = 6188 the batched solve fails on the card)."""
+    S, ld_phi = crn_capacity(dd.gram, phi_noise, dd.orf, phi_gw)
+    chi2, ld_cap = [], []
+    for s in S:
+        L = cho_factor(s)
+        x = cho_solve(L, dd.b)
+        chi2.append(dd.rr - torch.sum(dd.b * x))
+        ld_cap.append(torch.sum(torch.log(torch.diagonal(L))))
+    return (torch.stack(chi2),
+            dd.ld_white + ld_phi + 2.0 * torch.stack(ld_cap))
 
 
 class CommonProcess:
@@ -237,6 +268,7 @@ class CommonProcess:
         self._pulsar_terms = None
         self._U_full = None
         self._dense = None
+        self._phi_padded = None
 
     @property
     def kron_data(self) -> KronData:
@@ -279,13 +311,49 @@ class CommonProcess:
             r, nvec = cat("r"), cat("sigma") ** 2
             U = self.U_full
             ninv_r = r / nvec
+            nb_max = max(len(d.phi) for d in self.data)
+            cols = np.concatenate([a * nb_max + np.arange(len(d.phi))
+                                   for a, d in enumerate(self.data)])
             self._dense = DenseData(
                 gram=(U.T * (1.0 / nvec)[None, :]) @ U, b=U.T @ ninv_r,
                 rr=torch.sum(r * ninv_r), ld_white=torch.sum(torch.log(nvec)),
                 phi_noise=cat("phi"),
                 orf=torch.as_tensor(np.asarray(self.orf, np.float64),
-                                    device=self.device))
+                                    device=self.device),
+                noise_cols=torch.as_tensor(cols, device=self.device))
         return self._dense
+
+    @property
+    def phi_padded(self) -> torch.Tensor:
+        """(P, nb_max): each pulsar's noise weights, zero-padded to the
+        widest pulsar's (the kron path's layout, which
+        :meth:`chi2_logdet` takes on either path)."""
+        if self._phi_padded is None:
+            self._phi_padded = padded_phi(self.data, self.device)
+        return self._phi_padded
+
+    def dense_noise(self, phi_noise):
+        """(..., kn): padded noise-weight rows (..., P, nb_max) on the
+        dense path's columns (each pulsar's weights, concatenated)."""
+        lead = phi_noise.shape[:-2]
+        return phi_noise.reshape(lead + (-1,))[..., self.dense.noise_cols]
+
+    def chi2_logdet(self, phi_noise, phi_gw):
+        """(chi2 (...), logdet C (...)) with the noise weights and the GW
+        powers of each point: ``phi_noise`` (..., P, nb_max) padded rows,
+        ``phi_gw`` (..., m2).  The kron path's two-level Woodbury against
+        the grams held once (K5 / K5b), or the dense path's
+        :func:`dense_chi2_logdet` (K11 / K11b); differentiable in both."""
+        if self.kron:
+            kd = self.kron_data
+            return kron_chi2_logdet_pre(kd.gram, KronPhi(
+                orf=kd.orf, phi_gw=phi_gw, phi_noise=phi_noise))
+        lead = phi_gw.shape[:-1]
+        pn = self.dense_noise(phi_noise)
+        chi2, logdet = dense_chi2_logdet(
+            self.dense, pn.reshape(-1, pn.shape[-1]),
+            phi_gw.reshape(-1, phi_gw.shape[-1]))
+        return chi2.reshape(lead), logdet.reshape(lead)
 
     @property
     def pulsar_terms(self):
@@ -309,22 +377,9 @@ class CommonProcess:
         return torch.sum(chi2_d) - corr, torch.sum(ld_d) + ld_t
 
     def _chi2_logdet_dense(self, log10_amps, gammas):
-        """The reference's dense Woodbury (pint_tpu gw/common.py:186 and
-        linalg.py:288) at every point: K11's capacity matrices, then per
-        point one Cholesky and one solve against b.  One point at a time:
-        the libraries' batched Cholesky and solve are built for small
-        matrices (at K = 6188 the batched solve fails on the card)."""
         dd = self.dense
-        S, ld_phi = crn_capacity(dd.gram, dd.phi_noise, dd.orf,
+        return dense_chi2_logdet(dd, dd.phi_noise,
                                  self._phi_gw(log10_amps, gammas))
-        chi2, ld_cap = [], []
-        for s in S:
-            L = cho_factor(s)
-            x = cho_solve(L, dd.b)
-            chi2.append(dd.rr - torch.sum(dd.b * x))
-            ld_cap.append(torch.sum(torch.log(torch.diagonal(L))))
-        return (torch.stack(chi2),
-                dd.ld_white + ld_phi + 2.0 * torch.stack(ld_cap))
 
     def _lnlike_points(self, log10_amps, gammas):
         """(n,) log-likelihoods at n (log10 A, gamma) points (tensors)."""

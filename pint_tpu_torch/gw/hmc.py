@@ -8,7 +8,12 @@ K5 forward, K5b backward on CUDA) and the GW sector's LU (PyTorch's
 ``lu_factor_ex`` / ``lu_solve`` and their autograd).  Every chain is a
 row of one batch; the per-pulsar grams (kernel K3, built once) are
 shared by every chain and draw, since no sampled parameter touches
-sigma.
+sigma.  Over a dense ``CommonProcess(kron=False)`` the same theta goes
+through the reference's dense path instead (pint_tpu gw/hmc.py:270
+``_dense_chi2_logdet``), the independent reference the kron gradients
+are held to: each chain's (K, K) capacity from the gram held once
+(kernel K11 forward, K11b backward on CUDA), its Cholesky and solve
+(cuSOLVER, their gradients PyTorch's).
 
 :func:`run_nuts` is the reference's NUTS-class sampler in its
 static-trajectory form: jittered-length leapfrog trajectories that run
@@ -28,10 +33,8 @@ uniforms (C,).  JAX's threefry streams cannot be reproduced, so the
 tests inject the reference's draws (``draws=``).
 
 Not ported (ROADMAP): ``checkpoint`` and resume, ``mesh`` over chains,
-sampled parameters that change sigma (an in-trace gram), the
-``iter_trace`` telemetry records, and the dense (``kron=False``)
-posterior (pint_tpu gw/hmc.py:270 ``_dense_chi2_logdet``): a dense
-:class:`CommonProcess` raises here.
+sampled parameters that change sigma (an in-trace gram, on either path),
+and the ``iter_trace`` telemetry records.
 """
 
 from __future__ import annotations
@@ -48,7 +51,6 @@ from pint_tpu_torch._cuda import CudaKernel
 from pint_tpu_torch.fitter import FitDivergedError
 from pint_tpu_torch.gw.common import CommonProcess, red_noise_layout
 from pint_tpu_torch.iterate import iterate_fixed
-from pint_tpu_torch.linalg import KronPhi, kron_chi2_logdet_pre
 from pint_tpu_torch.models.noise import gwb_phi, powerlaw
 
 __all__ = ["GWBPosterior", "run_nuts", "NUTSResult", "DEFAULT_BOUNDS",
@@ -108,21 +110,16 @@ class GWBPosterior:
 
     theta layout: ``[gwb_log10_A, gwb_gamma] + [one entry per (pulsar,
     name) in sample order]``, a pulsar contributing the names of
-    ``sample`` its model carries.  ``crn`` is a kron
+    ``sample`` its model carries.  ``crn`` is a
     :class:`~pint_tpu_torch.gw.common.CommonProcess` built from pairs
-    (its per-pulsar Residuals give the noise weights); the posterior
-    runs on ``crn.device``.
+    (its per-pulsar Residuals give the noise weights), kron or dense: the
+    likelihood takes its path; the posterior runs on ``crn.device``.
 
     Only PLRedNoise's TNREDAMP and TNREDGAM are sampled: a name that
     changes sigma, or any other name, raises ``NotImplementedError``."""
 
     def __init__(self, crn: CommonProcess, sample=SAMPLEABLE, bounds=None,
                  scales=None):
-        if not crn.kron:
-            raise NotImplementedError(
-                "GWBPosterior over a dense CommonProcess (kron=False): the "
-                "dense posterior and its gradient are not ported (ROADMAP "
-                "queue 1 item 8)")
         if crn.resids is None:
             raise ValueError(
                 "GWBPosterior needs a CommonProcess built from pairs "
@@ -171,10 +168,7 @@ class GWBPosterior:
             [look(s, n, _FALLBACK_SCALE) for n in self.param_names],
             dtype=np.float64)
         dev = self.device
-        kd = crn.kron_data
-        self.gram = kd.gram
-        self.phi0 = kd.phi_noise
-        self.orf = kd.orf
+        self.phi0 = crn.phi_padded
         self._lo = torch.as_tensor(self.bounds[:, 0], device=dev)
         self._hi = torch.as_tensor(self.bounds[:, 1], device=dev)
         self._ln2pi_term = 0.5 * crn.n_toa_total * math.log(2.0 * math.pi)
@@ -194,6 +188,12 @@ class GWBPosterior:
                         for n in SAMPLEABLE}
         self._rn_base = {n: torch.as_tensor(base[n], device=dev)
                          for n in SAMPLEABLE}
+
+    @property
+    def gram(self):
+        """The kron path's per-pulsar grams (K3), shared by every chain
+        (built on first use over a dense process)."""
+        return self.crn.kron_data.gram
 
     # -- theta -> model ingredients ------------------------------------------
 
@@ -232,9 +232,7 @@ class GWBPosterior:
         th = torch.clamp(theta, self._lo, self._hi)
         phi_gw = gwb_phi(self.crn.freqs, 10.0 ** th[..., 0:1],
                          th[..., 1:2], self.crn.df)
-        kp = KronPhi(orf=self.orf, phi_gw=phi_gw,
-                     phi_noise=self.phi_noise_at(th))
-        chi2, logdet = kron_chi2_logdet_pre(self.gram, kp)
+        chi2, logdet = self.crn.chi2_logdet(self.phi_noise_at(th), phi_gw)
         lnl = -0.5 * (chi2 + logdet) - self._ln2pi_term
         return torch.where(inside, lnl, torch.full_like(lnl, -math.inf))
 
@@ -272,7 +270,8 @@ class GWBPosterior:
 
 class NUTSResult(NamedTuple):
     """What :func:`run_nuts` returns (pint_tpu gw/hmc.py:327), plus the
-    accept decisions and the wall time of each chunk."""
+    accept decisions, their acceptance probabilities and the wall time of
+    each chunk."""
 
     samples: np.ndarray         # (num_samples, n_chains, ndim)
     lnprob: np.ndarray          # (num_samples, n_chains)
@@ -282,6 +281,7 @@ class NUTSResult(NamedTuple):
     warmup_samples: np.ndarray  # (num_warmup, n_chains, ndim)
     accepted: Optional[np.ndarray] = None  # (warmup + samples, n_chains)
     chunk_seconds: Optional[list] = None   # host wall time per chunk
+    accept_prob: Optional[np.ndarray] = None  # (warmup + samples, n_chains)
 
     def flat(self):
         """(num_samples * n_chains, ndim) flattened posterior."""
@@ -623,4 +623,5 @@ def run_nuts(posterior: GWBPosterior, *, num_warmup=300, num_samples=500,
         step_size=np.asarray(eps_all[-1]),
         divergences=int(np.sum(div_all[post])),
         warmup_samples=theta_all[:nw],
-        accepted=cat("accepted")[:total], chunk_seconds=chunk_s)
+        accepted=cat("accepted")[:total], chunk_seconds=chunk_s,
+        accept_prob=acc_all[:total])

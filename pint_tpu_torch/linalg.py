@@ -22,7 +22,8 @@ Its dense counterpart, the reference's oracle for it, forms each grid
 point's (K, K) capacity matrix from one gram: kernel K11
 (``csrc/crn_capacity.cu``) writes gram + phi^-1 with the prior inverted
 as m2 blocks of P x P, :func:`crn_capacity_plain` inverts the dense
-prior as the reference does.
+prior as the reference does; kernel K11b (the same source) is its
+backward, for the dense posterior's gradient.
 
 Where pint_tpu and PyTorch part ways:
 
@@ -1252,39 +1253,109 @@ def kron_gram_append(pre: KronGram, pulsar, row0, r_rows, sigma_rows,
 #: sums
 K11 = CudaKernel(
     "crn_capacity", "crn_capacity.cu", "crn_capacity_launch",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 5)
+    [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 6)
+#: kernel K11b (replaces the jax.grad of the same through the dense
+#: prior, pint_tpu gw/hmc.py:270 _dense_chi2_logdet and linalg.py:223
+#: _phi_terms); one kernel a call: the noise weights' cotangents and the
+#: GW blocks'
+K11B = CudaKernel(
+    "crn_capacity_bwd", "crn_capacity.cu", "crn_capacity_bwd_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 6)
+
+
+def _noise_rows(phi_noise, g):
+    """``phi_noise`` (kn,) shared by ``g`` points, or (G, kn) a row a
+    point, as (G, kn) (a view)."""
+    return phi_noise.expand(g, -1) if phi_noise.dim() == 1 else phi_noise
 
 
 def crn_capacity_plain(gram, phi_noise, orf, phi_gw):
     """(S (G, K, K), logdet_phi (G,)): S_g = gram + phi_g^-1 for the
-    dense prior phi_g = blockdiag(diag(phi_noise), kron(orf,
+    dense prior phi_g = blockdiag(diag(phi_noise[g]), kron(orf,
     diag(phi_gw[g]))) in the reference's pulsar-major column order, its
     inverse by :func:`_phi_terms` (pint_tpu gw/common.py:194-200,
-    linalg.py:223): the plain PyTorch version of K11, K^3 a point."""
+    linalg.py:223): the plain PyTorch version of K11, K^3 a point.
+    ``phi_noise`` is (kn,), shared by every point, or (G, kn)."""
     out, lds = [], []
-    for pg in phi_gw:
+    for pn, pg in zip(_noise_rows(phi_noise, phi_gw.shape[0]), phi_gw):
         phi_inv, ld = _phi_terms(kron_phi_dense(
-            KronPhi(orf=orf, phi_gw=pg, phi_noise=phi_noise)))
+            KronPhi(orf=orf, phi_gw=pg, phi_noise=pn)))
         out.append(gram + phi_inv)
         lds.append(ld)
     return torch.stack(out), torch.stack(lds)
 
 
+def crn_gw_inverse_plain(orf, phi_gw):
+    """(G, m2, P, P): the inverse of every jittered GW block
+    phi_gw[g, f] orf + 1e-12 diag(|phi_gw[g, f] orf_aa| + 1e-30), by its
+    Cholesky (NaN where it fails), as K11 forms them in its scratch."""
+    blocks = kron_gw_blocks(KronPhi(orf=orf, phi_gw=phi_gw,
+                                    phi_noise=None))
+    return torch.cholesky_inverse(cho_factor(blocks))
+
+
+def crn_capacity_bwd_plain(gS, gld, phi_noise, phi_gw, M):
+    """The plain PyTorch version of K11b: (g_phi_noise (G, kn),
+    g_phi_gw (G, m2)) from the cotangents gS (G, K, K) of S and gld (G,)
+    of logdet phi, with M (G, m2, P, P) the GW blocks' inverses.  With
+    phi' = phi + 1e-12 (|phi| + 1e-30) on each noise column,
+
+        g_phi_noise = (gld / phi' - gS_jj / phi'^2) (1 + 1e-12 sign phi).
+
+    The GW block B_f = phi_f orf + 1e-12 diag(|phi_f orf_aa| + 1e-30)
+    of :func:`_phi_terms`' dense branch is phi_f W + e I with W = dB_f /
+    dphi_f = orf + 1e-12 diag(sign(phi_f orf_aa) orf_aa) and e = 1e-42.
+    So with gM_f the block of gS on the GW columns kn + a m2 + f and gB_f
+    = gld M_f - M_f sym(gM_f) M_f the cotangent of B_f,
+
+        g_phi_gw[f] = <gB_f, W> = <gB_f, B_f - e I> / phi_f
+                    = (gld P - <gM_f, sym(M_f)>) / phi_f - e tr(gB_f) / phi_f,
+
+    a gather and a dot product a block.  The last term is left out: it
+    is below e ||M_f|| of the rest, and ||M_f|| <= 1 / (1e-12 phi_f min
+    orf_aa) even under a rank-deficient ORF (the ridge), so below 1e-30 /
+    phi_f.  phi_gw must be nonzero (a power law's is positive)."""
+    g, m2 = phi_gw.shape
+    p = M.shape[-1]
+    kn = gS.shape[-1] - p * m2
+    pn = _noise_rows(phi_noise, g)
+    pp = pn + _PHI_JITTER * (torch.abs(pn) + _PHI_FLOOR)
+    d = torch.diagonal(gS, dim1=-2, dim2=-1)[:, :kn]
+    j = torch.full_like(pn, _PHI_JITTER)
+    dp = 1.0 + torch.where(pn >= 0.0, j, -j)
+    g_noise = (gld[:, None] / pp - d / (pp * pp)) * dp
+    # gM[g, f, a, b] = gS[g, kn + a m2 + f, kn + b m2 + f]
+    gm = torch.diagonal(gS[:, kn:, kn:].reshape(g, p, m2, p, m2), dim1=2,
+                        dim2=4).permute(0, 3, 1, 2)
+    ms = 0.5 * (M + M.transpose(-1, -2))
+    return g_noise, (gld[:, None] * p - torch.sum(gm * ms, dim=(-2, -1))) \
+        / phi_gw
+
+
+def _crn_shapes(name, gram, phi_noise, orf, phi_gw):
+    """(G, K, kn, P, m2, noise stride) of K11's inputs; raises on what
+    the kernels do not take."""
+    g, m2 = phi_gw.shape
+    p, k = orf.shape[0], gram.shape[0]
+    kn = phi_noise.shape[-1]
+    if orf.shape != (p, p) or gram.shape != (k, k) or k != kn + p * m2 \
+            or phi_noise.shape not in ((kn,), (g, kn)):
+        raise ValueError(f"{name}: gram (K, K) with K = kn + P m2 against "
+                         "phi_noise (kn,) or (G, kn), orf (P, P), phi_gw "
+                         "(G, m2)")
+    return g, k, kn, p, m2, kn if phi_noise.dim() == 2 else 0
+
+
 def crn_capacity_cuda(gram, phi_noise, orf, phi_gw):
-    """Kernel K11 on CUDA tensors, the outputs of
-    :func:`crn_capacity_plain`: the GW sector as m2 independent P x P
-    blocks a point, each factored and inverted in one block's shared
-    memory (raises where P x P does not fit it), and the rest of G0
-    read once and written to every point."""
+    """Kernel K11 on CUDA tensors: (S, logdet_phi) of
+    :func:`crn_capacity_plain` and the GW blocks' inverses M (G, m2, P,
+    P), which K11b reads.  The GW sector as m2 independent P x P blocks a
+    point, each factored and inverted in one block's shared memory
+    (raises where P x P does not fit it), and the rest of G0 read once
+    and written to every point."""
     ts = tuple(t.contiguous() for t in (gram, phi_noise, orf, phi_gw))
     dev = _check_cuda("crn_capacity_cuda", ts)
-    gram, phi_noise, orf, phi_gw = ts
-    g, m2 = phi_gw.shape
-    p, kn, k = orf.shape[0], phi_noise.shape[0], gram.shape[0]
-    if orf.shape != (p, p) or gram.shape != (k, k) or k != kn + p * m2:
-        raise ValueError("crn_capacity_cuda: gram (K, K) with K = kn + P m2 "
-                         "against phi_noise (kn,), orf (P, P), phi_gw "
-                         "(G, m2)")
+    g, k, kn, p, m2, ns = _crn_shapes("crn_capacity_cuda", *ts)
     if not K11.call("crn_capacity_smem", p):
         raise NotImplementedError(
             f"K11: a {p} x {p} ORF block does not fit one block's shared "
@@ -1298,18 +1369,82 @@ def crn_capacity_cuda(gram, phi_noise, orf, phi_gw):
     if g:
         K11.launch(dev, *(t.data_ptr() for t in ts), S.data_ptr(),
                    ld.data_ptr(), ld_blk.data_ptr(), blocks.data_ptr(), g,
-                   k, kn, p, m2)
-    return S, ld
+                   k, kn, ns, p, m2)
+    return S, ld, blocks
+
+
+def crn_capacity_bwd_cuda(gS, gld, phi_noise, phi_gw, M):
+    """Kernel K11b on CUDA tensors, the outputs of
+    :func:`crn_capacity_bwd_plain`."""
+    ts = tuple(t.contiguous() for t in (gS, gld, phi_noise, phi_gw, M))
+    dev = _check_cuda("crn_capacity_bwd_cuda", ts)
+    gS, gld, phi_noise, phi_gw, M = ts
+    g, m2 = phi_gw.shape
+    p = M.shape[-1]
+    k = gS.shape[-1]
+    kn = phi_noise.shape[-1]
+    if gS.shape != (g, k, k) or gld.shape != (g,) \
+            or M.shape != (g, m2, p, p) or k != kn + p * m2 \
+            or phi_noise.shape not in ((kn,), (g, kn)):
+        raise ValueError("crn_capacity_bwd_cuda: gS (G, K, K), gld (G,), "
+                         "phi_noise (kn,) or (G, kn), phi_gw (G, m2), M (G, "
+                         "m2, P, P) with K = kn + P m2")
+    g_noise = torch.empty((g, kn), dtype=torch.float64, device=dev)
+    g_gw = torch.empty((g, m2), dtype=torch.float64, device=dev)
+    if g:
+        K11B.launch(dev, *(t.data_ptr() for t in ts), g_noise.data_ptr(),
+                    g_gw.data_ptr(), g, k, kn,
+                    kn if phi_noise.dim() == 2 else 0, p, m2)
+    return g_noise, g_gw
+
+
+class _CrnCapacity(torch.autograd.Function):
+    """K11 forward and K11b backward on CUDA tensors, their plain
+    versions on CPU tensors; differentiable in phi_noise and phi_gw."""
+
+    @staticmethod
+    def forward(ctx, gram, phi_noise, orf, phi_gw):
+        if gram.device.type == "cuda":
+            S, ld, M = crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
+        elif gram.device.type == "cpu":
+            S, ld = crn_capacity_plain(gram, phi_noise, orf, phi_gw)
+            M = None
+        else:
+            raise ValueError(f"crn_capacity: no version for {gram.device}")
+        ctx.save_for_backward(phi_noise, orf, phi_gw, M)
+        return S, ld
+
+    @staticmethod
+    def backward(ctx, gS, gld):
+        phi_noise, orf, phi_gw, M = ctx.saved_tensors
+        g = phi_gw.shape[0]
+        if gS is None:
+            k = orf.shape[0] * phi_gw.shape[1] + phi_noise.shape[-1]
+            gS = phi_gw.new_zeros((g, k, k))
+        if gld is None:
+            gld = phi_gw.new_zeros(g)
+        if phi_gw.device.type == "cuda":
+            g_noise, g_gw = crn_capacity_bwd_cuda(gS, gld, phi_noise,
+                                                  phi_gw, M)
+        else:
+            g_noise, g_gw = crn_capacity_bwd_plain(
+                gS, gld, phi_noise, phi_gw,
+                crn_gw_inverse_plain(orf, phi_gw))
+        if phi_noise.dim() == 1:
+            g_noise = torch.sum(g_noise, dim=0)
+        return None, g_noise, None, g_gw
 
 
 def crn_capacity(gram, phi_noise, orf, phi_gw):
-    """K11 for CUDA tensors, its plain version for CPU tensors."""
-    dev = gram.device.type
-    if dev == "cuda":
-        return crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
-    if dev == "cpu":
-        return crn_capacity_plain(gram, phi_noise, orf, phi_gw)
-    raise ValueError(f"crn_capacity: no version for {gram.device}")
+    """(S (G, K, K), logdet_phi (G,)) of :func:`crn_capacity_plain`: K11
+    for CUDA tensors, its plain version for CPU tensors.  Differentiable
+    in ``phi_noise`` ((kn,) or (G, kn)) and ``phi_gw`` (G, m2): K11b on
+    CUDA, its plain version on the CPU; a gram or ORF that requires grad
+    raises."""
+    if gram.requires_grad or orf.requires_grad:
+        raise ValueError("crn_capacity differentiates phi_noise and phi_gw "
+                         "only; the gram or the ORF requires grad")
+    return _CrnCapacity.apply(gram, phi_noise, orf, phi_gw)
 
 
 # --------------------------------------------------------------------------

@@ -136,8 +136,36 @@ def crn_capacity_limit(p: int, kappa: float) -> float:
     memory, the plain version the whole dense prior by LAPACK /
     cuSOLVER); a Cholesky inverse is accurate to ~P eps kappa of its
     largest entry, each log L_aa to ~P eps kappa, and the K terms of the
-    logdet, summed in other orders, to ~eps of their magnitude."""
+    logdet, summed in other orders, to ~eps of their magnitude.
+
+    The dense posterior's gradient in phi_gw is a dot product with those
+    inverses (``linalg.crn_capacity_bwd_plain``), so under a singular
+    ORF (kappa ~1e12) it is good only to this relative to max |g|: the
+    ridge that keeps such a block positive, 1e-12 of its diagonal, is
+    stored to eps / 1e-12 ~ 1e-4 of itself, and the inverse's large
+    entries (~kappa / phi_gw) with it, on every route.  Measured on
+    tests/test_torch_hmc_dense.py's ``small`` array (kappa 4e12 under
+    the monopole, 2.5e12 under the dipole) as a share of max |g|: the
+    reference's own dense gradient from the port's kron one 5.7e-4 and
+    1.6e-4, the port's dense gradient from the kron one 6.9e-4 and
+    8.8e-5 and from the reference's dense one 2.6e-4 and 6.9e-5, K11b's
+    plain version from autograd through the dense prior's Cholesky
+    4.2e-4 (monopole); the limit here is 3.5e-3 and 2.2e-3.
+    ``GW_SINGULAR_REL`` holds the values there, not the gradient."""
     return p * _EPS * kappa
+
+
+def crn_capacity_bwd_limit(p: int) -> float:
+    """K11b against its plain version on the same inputs (the same
+    blocks' inverses M): per output entry, this times the entry's sum of
+    the absolute values of its terms (the plain formula on -|gS|, |gld|
+    and |M|).  A GW entry is a sum of P^2 products gM_ab (M_ab + M_ba) /
+    2 (two roundings each) and gld P, summed in another order than the
+    plain version's, then a subtraction and a division: a recursive sum
+    of n terms is exact to (n - 1) eps of the sum of their magnitudes,
+    so (P^2 + 4) eps bounds each route.  A noise entry is the same
+    elementwise operations in both."""
+    return (p * p + 4) * _EPS
 
 
 def crn_block_kappa(orf, phi_gw) -> float:

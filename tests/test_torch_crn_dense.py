@@ -68,19 +68,20 @@ def _square():
 
 @pytest.fixture(scope="module", params=["ragged", "square"])
 def built(request):
-    """(JAX data, port data) of one array: the build tuples both
-    packages' ``_prebuilt`` take."""
+    """(name, JAX data, port data, port pairs) of one array: the build
+    tuples both packages' ``_prebuilt`` take, and the pairs they came
+    from."""
     pairs = {"ragged": _ragged, "square": _square}[request.param]()
     add_gwb([t for _, t in pairs], [m for m, _ in pairs], 5e-14, rng=7,
             nmodes=NMODES)
     jd = jbuild(pairs, nmodes=NMODES)[:4]
     tp = pta_case_from_arrays(pta_case_arrays(pairs))
     td = build_pulsar_data(tp, nmodes=NMODES, device=CPU)[:4]
-    return request.param, jd, td
+    return request.param, jd, td, tp
 
 
 def _pair(built, orf, kron=False):
-    _, jd, td = built
+    _, jd, td, _ = built
     j = JCommonProcess(nmodes=NMODES, orf=orf, kron=kron, _prebuilt=jd)
     t = CommonProcess(nmodes=NMODES, orf=orf, kron=kron, device=CPU,
                       _prebuilt=td + (None,))
@@ -203,8 +204,18 @@ def test_non_finite_is_reported(built):
 
 
 def test_posterior_on_dense_raises(built):
+    """A posterior over a dense process built from pairs samples what the
+    kron one does; over a ``_prebuilt`` process (no prepared models) it
+    raises."""
+    tp = built[3]
+    dense = GWBPosterior(CommonProcess(tp, nmodes=NMODES, kron=False,
+                                       device=CPU))
+    kron = GWBPosterior(CommonProcess(tp, nmodes=NMODES, device=CPU))
+    assert dense.param_names == kron.param_names
+    assert np.array_equal(dense.bounds, kron.bounds)
+    assert np.array_equal(dense.scales, kron.scales)
     _, tcrn = _pair(built, "hd")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="_prebuilt"):
         GWBPosterior(tcrn)
 
 
@@ -249,7 +260,7 @@ def _stack(data, cut=None):
 def test_kron_gram_append(built):
     """Rows appended to one pulsar by kron_gram_append equal a regram of
     the extended stack and pint_tpu's append."""
-    _, _, td = built
+    _, _, td, _ = built
     data = td[0]
     a, n_new = 1, 7
     d = data[a]

@@ -1,6 +1,6 @@
-"""Kernels K1-K11 on the card against their plain PyTorch versions, and
-the double-double arithmetic on CUDA tensors against the same calls on
-CPU tensors.
+"""Kernels K1-K11 and K11b on the card against their plain PyTorch
+versions, and the double-double arithmetic on CUDA tensors against the
+same calls on CPU tensors.
 
 These tests need an NVIDIA GPU with nvcc (Hopper, sm_90a) and skip
 without one.  They import nothing of JAX, so they also run on a machine
@@ -936,8 +936,8 @@ def test_k11_against_plain_and_deterministic(card, p, m2, n_noise, g):
         gram, _, orf, phi_gw = args
         k = p * m2
         args = (gram[-k:, -k:].contiguous(), gram.new_zeros(0), orf, phi_gw)
-    s1, l1 = tl.crn_capacity_cuda(*args)
-    s2, l2 = tl.crn_capacity_cuda(*args)
+    s1, l1, _ = tl.crn_capacity_cuda(*args)
+    s2, l2, _ = tl.crn_capacity_cuda(*args)
     sp, lp = tl.crn_capacity_plain(*(t.cpu() for t in args))
     assert torch.equal(s1.view(torch.int64), s2.view(torch.int64))
     assert torch.equal(l1.view(torch.int64), l2.view(torch.int64))
@@ -967,12 +967,97 @@ def test_k11_failed_block_is_nan(card):
 
     gram, phi_noise, orf, phi_gw = chip_smoke.k11_synthetic(6, 4, 2, 2)
     phi_gw[1, 2] = float("nan")
-    s, ld = tl.crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
+    s, ld, _ = tl.crn_capacity_cuda(gram, phi_noise, orf, phi_gw)
     kn = phi_noise.numel()
     cols = kn + torch.arange(6, device=card) * 4 + 2
     assert torch.isnan(s[1][cols[:, None], cols[None, :]]).all()
     assert torch.isnan(ld[1]) and torch.isfinite(ld[0])
     assert torch.isfinite(s[0]).all()
+
+
+@pytest.mark.parametrize("p,m2,n_noise,g", [(68, 28, 3, 4), (12, 10, 25, 64),
+                                            (5, 3, 2, 1), (119, 2, 1, 2),
+                                            (68, 28, 0, 2), (33, 4, 2, 3),
+                                            (169, 2, 1, 2)])
+def test_k11b_against_plain_and_deterministic(card, p, m2, n_noise, g):
+    import chip_smoke
+
+    row = chip_smoke.k11b_compare(chip_smoke.k11b_synthetic(p, m2, n_noise,
+                                                            g))
+    assert row["run_to_run"] and row["err_over_limit"] <= 1.0, row
+
+
+def test_k11b_refuses_inconsistent_shapes(card):
+    from pint_tpu_torch import linalg as tl
+
+    f64 = dict(dtype=torch.float64, device=card)
+    p = 4
+    with pytest.raises(ValueError, match="K = kn"):  # K != kn + P m2
+        tl.crn_capacity_bwd_cuda(torch.zeros((1, p + 1, p + 1), **f64),
+                                 torch.zeros(1, **f64), torch.ones(0, **f64),
+                                 torch.ones((1, 1), **f64),
+                                 torch.zeros((1, 1, p, p), **f64))
+
+
+def test_k11_per_point_noise_against_plain(card):
+    """K11 with a row of noise weights a point against its plain version;
+    with every row equal, the same bits as with the one shared row."""
+    import chip_smoke
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    _, _, pn, pg, _ = chip_smoke.k11b_synthetic(12, 10, 5, 6)
+    gram, _, orf, _ = chip_smoke.k11_synthetic(12, 10, 5, 6, seed=12)
+    s1, l1, _ = tl.crn_capacity_cuda(gram, pn, orf, pg)
+    sp, lp = tl.crn_capacity_plain(*(t.cpu() for t in (gram, pn, orf, pg)))
+    lim = tol.crn_capacity_limit(12, tol.crn_block_kappa(
+        orf.cpu().numpy(), pg.cpu().numpy()))
+    s1, l1 = s1.cpu(), l1.cpu()
+    for i in range(6):
+        assert torch.max(torch.abs(s1[i] - sp[i])) \
+            <= lim * torch.max(torch.abs(sp[i]))
+        assert abs(float(l1[i] - lp[i])) \
+            <= lim * (sp.shape[-1] + abs(float(lp[i])))
+    rows = pn[2].expand(6, -1).contiguous()
+    a = tl.crn_capacity_cuda(gram, rows, orf, pg)[:2]
+    b = tl.crn_capacity_cuda(gram, pn[2], orf, pg)[:2]
+    assert all(torch.equal(x.view(torch.int64), y.view(torch.int64))
+               for x, y in zip(a, b))
+
+
+def test_dense_posterior_on_card(card):
+    """The wide case's dense posterior on the card: lnprob and gradient
+    at its 4 theta against the CPU's and the card's kron posterior; one
+    K11 and one K11b launch a gradient, no K3 or K5."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import (PTA4_WIDE, load_arrays,
+                                        pta_case_from_arrays)
+    from pint_tpu_torch.gw.common import CommonProcess
+    from pint_tpu_torch.gw.hmc import GWBPosterior
+
+    arrays = load_arrays(PTA4_WIDE)
+    pairs = pta_case_from_arrays(arrays)
+    nmodes = int(arrays["ref_nmodes"])
+    theta = arrays["ref_theta"]
+    for k in (tl.K3, tl.K5, tl.K5W, tl.K11, tl.K11B):
+        k.launches = 0
+    dense = GWBPosterior(CommonProcess(pairs, nmodes=nmodes, kron=False,
+                                       device=card))
+    lg, gg = (t.cpu().numpy() for t in dense.value_and_grad(
+        torch.as_tensor(theta, device=card)))
+    assert tl.K11.launches == tl.K11B.launches == 1
+    assert tl.K3.launches == tl.K5.launches == tl.K5W.launches == 0
+    refs = [GWBPosterior(CommonProcess(pairs, nmodes=nmodes, kron=kron,
+                                       device=dev)).value_and_grad(
+        torch.as_tensor(theta, device=dev))
+        for kron, dev in ((False, "cpu"), (True, card))]
+    for lr, gr in refs:
+        lr, gr = lr.cpu().numpy(), gr.cpu().numpy()
+        assert np.all(np.abs(lg / lr - 1) <= tol.GW_LNLIKE_REL)
+        for a, b in zip(gg, gr):
+            assert np.max(np.abs(a - b)) <= tol.HMC_GRAD_REL * np.max(
+                np.abs(b))
 
 
 def test_dd_bit_identical_on_card(card):
