@@ -71,6 +71,27 @@ the closing ``{"ok": true, ...}`` line is not printed:
 9d. ``dd``: every ``pint_tpu_torch.dd`` function on 10^6 seeded CUDA
     inputs, bit-identical to the same calls on CPU tensors; add, mul and
     div timed;
+9e. ``pta batch``: ``PTABatch`` over the heterogeneous 68-pulsar,
+    500-TOA array of ``pint_tpu_torch/data/pta68_500_batch.npz``
+    (isolated and DD members alternating, EFAC/EQUAD/ECORR, 30-mode red
+    noise): ``residuals``, ``residuals_shared``, ``chisq``, ``fit_wls(3)``
+    and ``fit_gls(3)`` held to the JAX answers it carries (residuals
+    1e-11 s, chi^2 at fixed values ``tolerances.pta_chi2_limit``, values
+    (less one ulp) and sigma within ``fit_tolerances`` of each member's
+    condition, the
+    fitted chi^2 within its conditioning part plus ``pta_chi2_limit``)
+    and to the port's single-pulsar WLS and GLS fits of every member on
+    the card (F0 within 5e-10 Hz, chi^2 within 1e-8 relative); the
+    isolated members' placeholder binary parameters unmoved; launches of
+    K1, K2, K7, K8 on the path (K1, K7 > 0; K2 = K8 = 0); per batched
+    fit call at 68 and 8 members those launches and the ATen ops (equal)
+    and the profiler's kernels outside cuSOLVER's SVD and eigh, which
+    run one factorization a member (fewer than 60 more at 68); cold and
+    warm walls, pulsar
+    fits/s, the 68 single fits' walls, busy share, device time by group
+    and peak memory; ``pta homogeneous``: ``fit_gls(3)`` over the GW
+    array's 68 pulsars (no superset, nb = 61) against the port's
+    ``GLSFitter`` member by member, with its walls;
 10. the Bayesian GWB posterior on the same array
     (``GWBPosterior(CommonProcess(pairs, nmodes=14))``, 138 dimensions:
     the GWB's (log10 A, gamma) and every pulsar's TNREDAMP, TNREDGAM):
@@ -3380,6 +3401,33 @@ def k11_k7_times():
     return out
 
 
+def fit_checksums():
+    """Exact checksums of the fit phase's numbers on the card, for
+    ``tools/torch_turns.py``: the 10k case's prefit time residuals, and
+    after ``GLSFitter.fit_toas(maxiter=3)`` its fitted values and
+    postfit residuals, so that two checkouts' fits can be compared bit
+    for bit."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch.convert import load_case
+    from pint_tpu_torch.fitter import GLSFitter
+    from pint_tpu_torch.residuals import Residuals
+
+    _, model, toas, tzr = load_case()
+    r = Residuals(toas, copy.deepcopy(model), tzr, device="cuda")
+    out = {"prefit": _bits_checksum(r.time_resids_at(
+        r.prepared.values_dict()))}
+    f = GLSFitter(toas, model, tzr, device="cuda")
+    f.fit_toas(maxiter=3)
+    out["values"] = _bits_checksum(torch.tensor(
+        [model.values[k] for k in model.free_params], dtype=torch.float64))
+    out["postfit"] = _bits_checksum(f.resids.time_resids_at(
+        f.prepared.values_dict()))
+    return out
+
+
 def k11b_synthetic(p, m2, n_noise, g, seed=12):
     """K11b's inputs (gS, gld, phi_noise (G, kn), phi_gw, M) on the
     card: :func:`k11_synthetic`'s prior with each point's own noise
@@ -3840,6 +3888,407 @@ def phase_kron_append(ost):
     return row
 
 
+#: device-time groups of a batched PTA fit (kernel names, lower case)
+PTA_GROUPS = {"eigh": ["syev", "sytrd", "stedc", "ormtr", "orgtr"],
+              "svd": ["gesvd", "gesdd", "svd"], "K1": ["phase_f0_t"],
+              "K7": ["wls_whiten"], "gemm": ["gemm", "gemv"],
+              "potrf": ["potrf", "potrs"], "ATen": ["at::native"]}
+#: the reference's pins of a batched fit against per-pulsar fits of the
+#: same members (tests/test_pta.py:221-263): F0 [Hz], chi^2 relative
+PTA_SINGLE_F0_HZ = 5e-10
+PTA_SINGLE_CHI2_REL = 1e-8
+
+
+def pta_single_fit(kind, model, toas, tzr, device, maxiter=3):
+    """One member's single-pulsar fit (``WLSFitter`` or ``GLSFitter``,
+    written into ``model``): the fitter and its row (values, chi^2 at
+    them -- white for WLS, as the batch's --, the condition of the last
+    solve as ``fit_tolerances`` takes it).  The CPU tests call it too."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+
+    f = (WLSFitter if kind == "wls" else GLSFitter)(toas, model, tzr,
+                                                      device=device)
+    chi2 = f.fit_toas(maxiter=maxiter)
+    cond = f.fit_health["cond_log10"]
+    if kind == "wls":
+        cond = tol.wls_normal_cond_log10(cond)
+        v = f.prepared.values_dict()
+        chi2 = float(torch.sum((f.resids.time_resids_at(v)
+                                / f.resids.sigma_at(v)) ** 2))
+    return f, {"values": dict(model.values), "chi2": chi2,
+               "cond_log10": cond}
+
+
+def _pta_singles(pairs, kinds=("wls", "gls")):
+    """The port's single-pulsar fits of every member on the card (each
+    its own model, no superset): per kind the rows of
+    :func:`pta_single_fit` and the walls of all the fits, cold (fitter
+    builds and first fits) and warm (the same fitters from the same
+    start)."""
+    import copy
+
+    import torch
+
+    out = {}
+    for kind in kinds:
+        fitters, rows = [], []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for model, toas, tzr in pairs:
+            m = copy.deepcopy(model)
+            start = dict(m.values)
+            f, row = pta_single_fit(kind, m, toas, tzr, "cuda")
+            fitters.append((f, m, start))
+            rows.append(row)
+        torch.cuda.synchronize()
+        cold_s = time.time() - t0
+        t0 = time.time()
+        for f, m, start in fitters:
+            m.values.update(start)
+            f.fit_toas(maxiter=3)
+        torch.cuda.synchronize()
+        out[kind] = {"rows": rows, "cold_s": cold_s,
+                     "warm_s": time.time() - t0}
+    return out
+
+
+def pta_fit_bound(b, kind, maxiter=3):
+    """(least time [ms], what bounds it) of one batched fit's normal-
+    equation work at the fp64 tensor-core peak: maxiter + 1 solves a
+    member, each reading the design J (n x p), r and sigma once (and for
+    GLS the basis U, n x nb, and forming M = [J | U], K = p + nb): WLS
+    the whitening (rw, Jn written) and a thin SVD, 4 n p^2 + 22 p^3
+    operations; GLS the weighted gram 2 n K^2, its eigendecomposition
+    9 K^3 and the capacity Cholesky nb^3 / 3 with its gram 2 n nb^2.
+    The fold and the design's build (elementwise, ~10^3 kernels a step)
+    are left out, so this bounds the fit from below."""
+    n, p = b.n_max, len(b.free_names)
+    steps = (maxiter + 1) * b.n_pulsars
+    if kind == "wls":
+        nbytes = 8 * n * (2 * p + 3)
+        flops = 4 * n * p * p + 22 * p ** 3
+    else:
+        nb = int(b._gather_noise()[0].shape[-1])
+        k = p + nb
+        nbytes = 8 * n * (k + 2)
+        flops = 2 * n * k * k + 9 * k ** 3 + nb ** 3 / 3 + 2 * n * nb * nb
+    return bound_ms(steps * nbytes, steps * flops, FP64_TC_FLOPS)
+
+
+def _pta_against_singles(b, kind, vec, chi2, singles):
+    """(worst |dF0| [Hz], worst chi^2 relative) of a batched fit against
+    the single-pulsar fits of its members."""
+    i_f0 = b.free_names.index("F0")
+    rows = singles[kind]["rows"]
+    return (max(abs(float(vec[k, i_f0]) - r["values"]["F0"])
+                for k, r in enumerate(rows)),
+            max(abs(float(chi2[k]) / r["chi2"] - 1.0)
+                for k, r in enumerate(rows)))
+
+
+#: the library calls of a batched fit that run one factorization a member
+#: inside cuSOLVER (its batched Jacobi takes 32 rows at most): the SVD of
+#: the whitened designs (WLS) and eigh of the normal matrices (GLS)
+PTA_PER_MEMBER_OPS = ("aten::linalg_svd", "aten::_linalg_svd",
+                      "aten::linalg_eigh", "aten::_linalg_eigh")
+
+
+def trace_library_split(prof, label, ops):
+    """(kernels, of them launched inside one of the CPU ops ``ops``,
+    launched outside them) in ``prof``'s exported chrome trace: a kernel
+    is matched to its launch call through CUPTI's correlation id, and
+    the launch to the op spans by its host time stamp.  A kernel whose
+    launch record is missing counts in neither part, so a lost window of
+    records (PERF.md section 7) can only lower the parts."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, f"{label}_trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    os.remove(path)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in events
+             if e.get("cat") == "cpu_op" and e["name"] in ops]
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "spin_kernel" not in e["name"]]
+    inside = outside = 0
+    for e in kernels:
+        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            continue
+        if any(lo <= t <= hi for lo, hi in spans):
+            inside += 1
+        else:
+            outside += 1
+    return len(kernels), inside, outside
+
+
+def _pta_per_call(batches, kernels):
+    """Per batched fit call, by (members, kind): the launches of each of
+    the port's kernels (the first call), the ATen ops dispatched (a
+    second, warm call) and, from the profiler's traces of two more, the
+    kernels the card ran, how many of them cuSOLVER launched inside the
+    per-member library calls (``PTA_PER_MEMBER_OPS``) and how many were
+    launched outside them (the larger of the two traces' counts each:
+    lost records only lower a count)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        """Counts the ATen ops dispatched under it (after vmap's
+        batching: a batched op is one call whatever its members)."""
+
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    out = {}
+    for b in batches:
+        for kind in ("wls", "gls"):
+            fit = getattr(b, f"fit_{kind}")
+            before = {n: k.launches for n, k in kernels.items()}
+            fit(maxiter=3)
+            row = {n: k.launches - before[n] for n, k in kernels.items()}
+            torch.cuda.synchronize()
+            with CountOps() as mode:
+                fit(maxiter=3)
+            torch.cuda.synchronize()
+            row["aten_ops"] = mode.n
+            traced = []
+            for _ in range(2):
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    fit(maxiter=3)
+                    torch.cuda.synchronize()
+                traced.append(trace_library_split(
+                    prof, f"pta_{b.n_pulsars}_{kind}", PTA_PER_MEMBER_OPS))
+            (row["kernels"], row["library_kernels"],
+             row["other_kernels"]) = (max(c) for c in zip(*traced))
+            out[f"{b.n_pulsars} {kind}"] = row
+    return out
+
+
+def phase_pta_batch(arrays, pairs):
+    """The PTA batch on the card: ``PTABatch`` over the heterogeneous
+    68 x 500 array of ``pta68_500_batch.npz`` (isolated and DD members
+    alternating), its ``residuals``, ``residuals_shared``, ``chisq`` and
+    ``fit_wls(3)``/``fit_gls(3)`` held to JAX's answers (residuals
+    1e-11 s; chi^2 at fixed values ``tolerances.pta_chi2_limit``; values,
+    sigma of the free entries within ``fit_tolerances`` of each member's
+    condition, the values less one ulp (``values_sigma_ulp``), the fitted
+    chi^2 within its conditioning part plus
+    ``pta_chi2_limit``), and member by member to the port's own
+    single-pulsar fitters on the card (F0 within 5e-10 Hz, chi^2 within
+    1e-8 relative); the isolated members' placeholder PB, A1, T0, ECC, OM
+    unmoved; launches of K1, K2, K7, K8 on the path (K1, K7 > 0, K2 = K8
+    = 0); per batched fit call at 68 and at the first 8 members, those
+    launches and the ATen ops dispatched (equal) and the profiler's
+    kernels outside cuSOLVER's per-member SVD and eigh (fewer than 68 - 8
+    more at 68: nothing else runs once per member); cold and warm walls
+    of each fit kind, pulsar fits/s, the walls of the 68 single-pulsar
+    fits, busy share, device time by group and peak memory of one warm
+    fit of each kind."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7, K8
+    from pint_tpu_torch.parallel import PTABatch
+
+    kernels = {"K1": K1, "K2": K2, "K7": K7, "K8": K8}
+    singles = _pta_singles(pairs)
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    b = PTABatch(pairs, device="cuda")
+    resid = b.residuals().cpu().numpy()
+    shared = b.residuals_shared()
+    chisq = b.chisq()
+    torch.cuda.synchronize()
+    eval_s = time.time() - t0
+    fits = {}
+    for kind in ("wls", "gls"):
+        t0 = time.time()
+        vec, chi2, cov = getattr(b, f"fit_{kind}")(maxiter=3)
+        torch.cuda.synchronize()
+        fits[kind] = {"vec": vec.cpu().numpy(), "chi2": chi2.cpu().numpy(),
+                      "cov": cov.cpu().numpy(), "cold_s": time.time() - t0}
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    names = [str(n) for n in arrays["ref_free_names"]]
+    valid = b.valid.cpu().numpy()
+    sigma, cinv_r = b._sigma_cinv_r("wls")
+    errs = {"free_names_equal": b.free_names == names,
+            "residuals_s": float(np.max(np.abs(resid
+                                               - arrays["ref_residuals"]))),
+            "residuals_shared_equal": bool(np.array_equal(shared, resid)),
+            "chisq_over_limit": float(np.max(
+                np.abs(chisq - arrays["ref_chisq"])
+                / tol.pta_chi2_limit(cinv_r, sigma, valid))),
+            "chisq_rel": float(np.max(np.abs(chisq / arrays["ref_chisq"]
+                                             - 1.0)))}
+    mask = b.free_mask.cpu().numpy() > 0
+    for kind, fit in fits.items():
+        ref_vec = arrays[f"ref_{kind}_values"]
+        ref_chi2 = arrays[f"ref_{kind}_chi2"]
+        ref_cov = arrays[f"ref_{kind}_cov"]
+        resid_lim = tol.pta_chi2_limit(
+            b._sigma_cinv_r(kind, fit["vec"])[1], sigma, valid)
+        worst = {"values_sigma": 0.0, "unc_rel": 0.0, "chi2_abs": 0.0}
+        for k in range(len(pairs)):
+            lim = tol.fit_tolerances(singles[kind]["rows"][k]["cond_log10"])
+            lim["chi2_abs"] = lim.pop("chi2_rel") * abs(ref_chi2[k]) \
+                + resid_lim[k]
+            f = mask[k]
+            jsig = np.sqrt(np.diag(ref_cov[k]))[f]
+            sig = np.sqrt(np.diag(fit["cov"][k]))[f]
+            got = {"values_sigma": tol.values_sigma_ulp(
+                       fit["vec"][k][f], ref_vec[k][f], jsig),
+                   "unc_rel": float(np.max(np.abs(sig / jsig - 1.0))),
+                   "chi2_abs": float(abs(fit["chi2"][k] - ref_chi2[k]))}
+            for n in worst:
+                worst[n] = max(worst[n], got[n] / lim[n])
+        errs[f"{kind}_over_limit"] = worst
+        errs[f"{kind}_chi2_rel"] = float(np.max(np.abs(
+            fit["chi2"] / ref_chi2 - 1.0)))
+        d_f0, d_chi2 = _pta_against_singles(b, kind, fit["vec"], fit["chi2"],
+                                            singles)
+        errs[f"{kind}_single_f0_hz"] = d_f0
+        errs[f"{kind}_single_chi2_rel"] = d_chi2
+        errs[f"{kind}_ref_rung"] = str(arrays[f"ref_{kind}_rung"])
+    iso = [k for k, p in enumerate(b.prepareds)
+           if "BinaryDD" in p.model._superset_inert]
+    errs["placeholders_moved"] = [
+        (k, p) for k in iso for p, v in (("PB", 365.25), ("T0", 0.0),
+                                         ("A1", 0.0), ("ECC", 0.0),
+                                         ("OM", 0.0))
+        if b.prepareds[k].model.values[p] != v]
+    per_call = _pta_per_call([b, PTABatch(pairs[:8], device="cuda")],
+                             kernels)
+
+    out = {"launches": launches, "per_call": per_call, "eval_cold_s": eval_s,
+           "peak_gib": peak / 2**30, "isolated_members": len(iso)}
+    for kind in ("wls", "gls"):
+        def warm(kind=kind):
+            getattr(b, f"fit_{kind}")(maxiter=3)
+            torch.cuda.synchronize()
+
+        t0 = time.time()
+        for _ in range(3):
+            warm()
+        warm_s = (time.time() - t0) / 3
+        torch.cuda.reset_peak_memory_stats()
+        busy, dev_ms, shares = trace_breakdown(warm, warm_s,
+                                               f"pta_batch_{kind}",
+                                               PTA_GROUPS)
+        bound, bound_by = pta_fit_bound(b, kind)
+        out[kind] = {"cold_s": fits[kind]["cold_s"], "warm_s": warm_s,
+                     "fits_per_s": len(pairs) / warm_s, "busy": busy,
+                     "device_ms": dev_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "shares": shares,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "singles_cold_s": singles[kind]["cold_s"],
+                     "singles_warm_s": singles[kind]["warm_s"]}
+    log("pta batch: " + json.dumps(out) + "; observed " + json.dumps(errs))
+    bad = [n for n in ("free_names_equal", "residuals_shared_equal")
+           if not errs[n]]
+    bad += [n for n, lim in (("residuals_s", tol.PREFIT_S),
+                             ("chisq_over_limit", 1.0))
+            if not errs[n] <= lim]
+    for kind in ("wls", "gls"):
+        bad += [f"{kind} {n}" for n, v in errs[f"{kind}_over_limit"].items()
+                if not v <= 1.0]
+        if not errs[f"{kind}_single_f0_hz"] <= PTA_SINGLE_F0_HZ \
+                or not errs[f"{kind}_single_chi2_rel"] <= PTA_SINGLE_CHI2_REL:
+            bad.append(f"{kind} against the single-pulsar fits")
+        if errs[f"{kind}_ref_rung"] != "baseline":
+            bad.append(f"{kind} reference rung")
+    if errs["placeholders_moved"] or not iso:
+        bad.append("placeholders")
+    if bad:
+        raise AssertionError(f"pta batch disagrees on {bad}")
+    if not (launches["K1"] > 0 and launches["K7"] > 0
+            and launches["K2"] == launches["K8"] == 0):
+        raise AssertionError(f"pta batch: K1 and K7 must run, K2 and K8 "
+                             f"must not: {launches}")
+    # the port's own launches and ATen ops per call are exact counts; the
+    # profiler's count of kernels outside the library's per-member calls
+    # is not (lost records lower it, cuBLAS picks its kernels by batch
+    # size), but one launch a member would add 68 - 8 of them
+    for kind in ("wls", "gls"):
+        a, c = per_call[f"{len(pairs)} {kind}"], per_call[f"8 {kind}"]
+        exact = [n for n in (*kernels, "aten_ops") if a[n] != c[n]]
+        if exact or a["other_kernels"] - c["other_kernels"] >= len(pairs) - 8:
+            raise AssertionError(f"pta batch {kind}: the calls outside the "
+                                 "library's per-member solves depend on the "
+                                 f"number of pulsars: {per_call}")
+    return out
+
+
+def phase_pta_homogeneous(pairs):
+    """``PTABatch.fit_gls(3)`` over the GW array's 68 homogeneous pulsars
+    (``load_pta_case()``: no superset, nb = 61), member by member against
+    the port's ``GLSFitter`` on the card (F0 within 5e-10 Hz, chi^2
+    within 1e-8 relative); launches per call (K1 > 0, K2 = K8 = 0);
+    cold and warm walls beside the 68 single fits'."""
+    import torch
+
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.linalg import K2, K7, K8
+    from pint_tpu_torch.parallel import PTABatch
+
+    kernels = {"K1": K1, "K2": K2, "K7": K7, "K8": K8}
+    singles = _pta_singles(pairs, kinds=("gls",))
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    b = PTABatch(pairs, device="cuda")
+    vec, chi2, _ = b.fit_gls(maxiter=3)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    t0 = time.time()
+    for _ in range(3):
+        b.fit_gls(maxiter=3)
+    torch.cuda.synchronize()
+    warm_s = (time.time() - t0) / 3
+    d_f0, d_chi2 = _pta_against_singles(b, "gls", vec.cpu().numpy(),
+                                        chi2.cpu().numpy(), singles)
+    U, _ = b._gather_noise()
+    out = {"superset": any(hasattr(p.model, "_superset_inert")
+                           for p in b.prepareds),
+           "nb": int(U.shape[-1]), "launches": launches, "cold_s": cold_s,
+           "warm_s": warm_s, "fits_per_s": len(pairs) / warm_s,
+           "singles_cold_s": singles["gls"]["cold_s"],
+           "singles_warm_s": singles["gls"]["warm_s"],
+           "single_f0_hz": d_f0, "single_chi2_rel": d_chi2}
+    log("pta homogeneous: " + json.dumps(out))
+    if out["superset"] or out["nb"] != 61:
+        raise AssertionError("pta homogeneous: a superset or another basis "
+                             "width")
+    if not (d_f0 <= PTA_SINGLE_F0_HZ and d_chi2 <= PTA_SINGLE_CHI2_REL):
+        raise AssertionError("pta homogeneous disagrees with the "
+                             "single-pulsar GLS fits")
+    if not (launches["K1"] > 0 and launches["K2"] == launches["K8"] == 0):
+        raise AssertionError(f"pta homogeneous launches {launches}")
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -3992,6 +4441,11 @@ def main():
         run("kron append", phase_kron_append, gw["ost"])
     else:
         table = None
+    from pint_tpu_torch.convert import PTA68_500_BATCH
+
+    run("pta batch", phase_pta_batch, *load_pta_case(PTA68_500_BATCH))
+    # a fresh copy: a homogeneous batch writes its fit into the models
+    run("pta homogeneous", phase_pta_homogeneous, load_pta_case()[1])
     run("dd", phase_dd)
     hmc = run("hmc", phase_hmc, pta_arrays, pairs)
     if hmc is not None:

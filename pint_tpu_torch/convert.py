@@ -33,6 +33,11 @@ B1855_EPOCHS_10K = Path(__file__).resolve().parent / "data" \
 #: the 68-pulsar, 500-TOA synthetic array of the GW path, with the JAX
 #: CPU answers (``tools/export_torch_pta_case.py``)
 PTA68_500 = Path(__file__).resolve().parent / "data" / "pta68_500.npz"
+#: the heterogeneous 68-pulsar, 500-TOA batch of bench_pta (isolated and
+#: DD members alternating), with the JAX CPU answers of ``PTABatch``
+#: (``tools/export_torch_pta_batch_case.py``)
+PTA68_500_BATCH = Path(__file__).resolve().parent / "data" \
+    / "pta68_500_batch.npz"
 #: the JAX CPU answers of the GWB posterior on that array
 #: (``tools/export_torch_hmc_case.py``)
 HMC_CASE = Path(__file__).resolve().parent / "data" / "pta68_500_hmc.npz"

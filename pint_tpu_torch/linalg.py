@@ -673,9 +673,10 @@ def gls_normal_solve(r, J, sigma, U, phi, gram: Optional[torch.Tensor] = None,
         mtcm = mtn @ M
         if nb:
             phi_inv, _ = _phi_terms(phi)
-            mtcm = mtcm + torch.block_diag(
-                torch.zeros((n_par, n_par), dtype=mtcm.dtype,
-                            device=mtcm.device), phi_inv)
+            # zeros over the timing block: block_diag has no batching
+            # rule, and under vmap it would run once per pulsar
+            mtcm = mtcm + torch.nn.functional.pad(phi_inv,
+                                                  (n_par, 0, n_par, 0))
         rhs = mtn @ r
     if nb:
         if gram is not None:

@@ -22,6 +22,9 @@ class AbsPhase(PhaseComponent):
         super().__init__()
         self.params = ["TZRMJD", "TZRFRQ"]
 
+    def defaults(self):
+        return {"TZRMJD": np.nan, "TZRFRQ": np.inf}
+
     def phase(self, values, batch, ctx, delay):
         # the TZR subtraction happens in PreparedModel._phase_raw_at
         return torch.zeros_like(delay)

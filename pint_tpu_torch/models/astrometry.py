@@ -30,6 +30,9 @@ class AstrometryEquatorial(DelayComponent):
         super().__init__()
         self.params = ["RAJ", "DECJ", "PMRA", "PMDEC", "PX", "POSEPOCH"]
 
+    def defaults(self):
+        return {"PMRA": 0.0, "PMDEC": 0.0, "PX": 0.0, "POSEPOCH": np.nan}
+
     def prepare(self, toas, model, device):
         posepoch = model.values.get("POSEPOCH", np.nan)
         if np.isnan(posepoch):

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from pint_tpu_torch import T_SUN_S
@@ -21,6 +22,12 @@ class BinaryDD(BinaryComponent):
         self.params = ["PB", "PBDOT", "XPBDOT", "T0", "A1", "XDOT", "ECC",
                        "EDOT", "OM", "OMDOT", "GAMMA", "M2", "SINI", "DR",
                        "DTH", "A0", "B0"]
+
+    def defaults(self):
+        return {"T0": 0.0, "PB": np.nan, "PBDOT": 0.0, "XPBDOT": 0.0,
+                "A1": 0.0, "XDOT": 0.0, "ECC": 0.0, "EDOT": 0.0, "OM": 0.0,
+                "OMDOT": 0.0, "GAMMA": 0.0, "M2": 0.0, "SINI": 0.0,
+                "DR": 0.0, "DTH": 0.0, "A0": 0.0, "B0": 0.0}
 
     def dd_quantities(self, values, dt, ctx, nu, forb):
         """(a1, omega, sini, tm2, gamma, dr, dth) for the delay kernel."""

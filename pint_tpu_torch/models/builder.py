@@ -142,14 +142,13 @@ def _astrometry(pardict):
             Param("PMRA", units="mas/yr"), Param("PMDEC", units="mas/yr"),
             Param("PX", units="mas"),
             Param("POSEPOCH", kind="mjd", fittable=False)]
-    return comp, meta, {"PMRA": 0.0, "PMDEC": 0.0, "PX": 0.0,
-                        "POSEPOCH": np.nan}
+    return comp, meta, comp.defaults()
 
 
 def _shapiro(pardict):
-    return (SolarSystemShapiro(),
-            [Param("PLANET_SHAPIRO", kind="bool", fittable=False)],
-            {"PLANET_SHAPIRO": 0.0})
+    comp = SolarSystemShapiro()
+    return (comp, [Param("PLANET_SHAPIRO", kind="bool", fittable=False)],
+            comp.defaults())
 
 
 def _dispersion(pardict):
@@ -157,16 +156,15 @@ def _dispersion(pardict):
     meta = [Param("DM", units="pc cm^-3")] + [
         Param(f"DM{k}", units=f"pc cm^-3/yr^{k}") for k in range(1, n + 1)
     ] + [Param("DMEPOCH", kind="mjd", fittable=False)]
-    d = {f"DM{k}": 0.0 for k in range(1, n + 1)}
-    d.update(DM=0.0, DMEPOCH=np.nan)
-    return DispersionDM(num_dm_derivs=n), meta, d
+    comp = DispersionDM(num_dm_derivs=n)
+    return comp, meta, comp.defaults()
 
 
 def _abs_phase(pardict):
-    return (AbsPhase(),
-            [Param("TZRMJD", kind="mjd", fittable=False),
-             Param("TZRFRQ", units="MHz", fittable=False)],
-            {"TZRMJD": np.nan, "TZRFRQ": np.inf})
+    comp = AbsPhase()
+    return (comp, [Param("TZRMJD", kind="mjd", fittable=False),
+                   Param("TZRFRQ", units="MHz", fittable=False)],
+            comp.defaults())
 
 
 def _spindown(pardict):
@@ -174,33 +172,28 @@ def _spindown(pardict):
     meta = [Param("F0", units="Hz")] + [
         Param(f"F{k}", units=f"Hz/s^{k}") for k in range(1, n + 1)
     ] + [Param("PEPOCH", kind="mjd", fittable=False)]
-    d = {f"F{k}": 0.0 for k in range(1, n + 1)}
-    d["PEPOCH"] = 0.0
-    return Spindown(num_freq_derivs=n), meta, d
+    comp = Spindown(num_freq_derivs=n)
+    return comp, meta, comp.defaults()
 
 
 def _scale_toa_error(pardict):
     comp = ScaleToaError(efac_selects=_masks(pardict, "EFAC"),
                          equad_selects=_masks(pardict, "EQUAD"),
                          tneq_selects=_masks(pardict, "TNEQ"))
-    meta, d = [], {}
-    for i, sel in enumerate(comp.efac_selects, start=1):
-        meta.append(Param(f"EFAC{i}", select=sel))
-        d[f"EFAC{i}"] = 1.0
-    for i, sel in enumerate(comp.equad_selects, start=1):
-        meta.append(Param(f"EQUAD{i}", units="us", scale=1e-6, select=sel))
-        d[f"EQUAD{i}"] = 0.0
-    for i, sel in enumerate(comp.tneq_selects, start=1):
-        meta.append(Param(f"TNEQ{i}", units="log10(s)", select=sel))
-        d[f"TNEQ{i}"] = -np.inf
-    return comp, meta, d
+    meta = [Param(f"EFAC{i}", select=sel)
+            for i, sel in enumerate(comp.efac_selects, start=1)]
+    meta += [Param(f"EQUAD{i}", units="us", scale=1e-6, select=sel)
+             for i, sel in enumerate(comp.equad_selects, start=1)]
+    meta += [Param(f"TNEQ{i}", units="log10(s)", select=sel)
+             for i, sel in enumerate(comp.tneq_selects, start=1)]
+    return comp, meta, comp.defaults()
 
 
 def _ecorr(pardict):
     comp = EcorrNoise(selects=_masks(pardict, "ECORR"))
     meta = [Param(f"ECORR{i}", units="us", scale=1e-6, select=sel)
             for i, sel in enumerate(comp.selects, start=1)]
-    return comp, meta, {p.name: 0.0 for p in meta}
+    return comp, meta, comp.defaults()
 
 
 def _red_noise(pardict):
@@ -209,7 +202,7 @@ def _red_noise(pardict):
     meta = [Param("TNREDAMP"), Param("TNREDGAM"),
             Param("TNREDC", fittable=False), Param("RNAMP"),
             Param("RNIDX")]
-    return comp, meta, {p.name: np.nan for p in meta}
+    return comp, meta, comp.defaults()
 
 
 def _binary_dd(pardict):
@@ -236,10 +229,8 @@ def _binary_dd(pardict):
         Param("A0", units="s"),
         Param("B0", units="s"),
     ]
-    d = {"T0": 0.0, "PB": np.nan, "PBDOT": 0.0, "XPBDOT": 0.0}
-    d.update(A1=0.0, XDOT=0.0, ECC=0.0, EDOT=0.0, OM=0.0, OMDOT=0.0,
-             GAMMA=0.0, M2=0.0, SINI=0.0, DR=0.0, DTH=0.0, A0=0.0, B0=0.0)
-    return BinaryDD(), meta, d
+    comp = BinaryDD()
+    return comp, meta, comp.defaults()
 
 
 #: JAX class name -> builder of (port instance, [Param], defaults)

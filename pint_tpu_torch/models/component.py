@@ -35,6 +35,11 @@ class Component:
         """Static per-dataset tensors on ``device``."""
         return {}
 
+    def defaults(self) -> dict:
+        """{name: value} of the parameters a par may leave out (NaN where
+        the reference has no neutral value)."""
+        return {}
+
     def linear_params(self) -> tuple:
         """Parameters whose phase contribution is linear with a
         closed-form design column (d_delay_d_param / d_phase_d_param

@@ -22,6 +22,11 @@ class DispersionDM(DelayComponent):
                                  range(1, num_dm_derivs + 1)]
                        + ["DMEPOCH"])
 
+    def defaults(self):
+        d = {f"DM{k}": 0.0 for k in range(1, self.num_dm_derivs + 1)}
+        d.update(DM=0.0, DMEPOCH=np.nan)
+        return d
+
     def prepare(self, toas, model, device):
         ep = model.values.get("DMEPOCH", np.nan)
         if np.isnan(ep):

@@ -139,6 +139,14 @@ class ScaleToaError(NoiseComponent):
             + [f"EQUAD{i}" for i in range(1, len(self.equad_selects) + 1)]
             + [f"TNEQ{i}" for i in range(1, len(self.tneq_selects) + 1)])
 
+    def defaults(self):
+        d = {f"EFAC{i}": 1.0 for i in range(1, len(self.efac_selects) + 1)}
+        d.update({f"EQUAD{i}": 0.0
+                  for i in range(1, len(self.equad_selects) + 1)})
+        d.update({f"TNEQ{i}": -np.inf
+                  for i in range(1, len(self.tneq_selects) + 1)})
+        return d
+
     def prepare(self, toas, model, device):
         return {
             "efac_masks": _stack_masks(self.efac_selects, toas, device),
@@ -179,6 +187,9 @@ class EcorrNoise(NoiseComponent):
         super().__init__()
         self.selects = tuple(tuple(s) for s in selects)
         self.params = [f"ECORR{i}" for i in range(1, len(self.selects) + 1)]
+
+    def defaults(self):
+        return {p: 0.0 for p in self.params}
 
     def prepare(self, toas, model, device):
         t = np.asarray(toas.ticks).astype(np.float64) / 2**32
@@ -266,6 +277,9 @@ class PLRedNoise(NoiseComponent):
         super().__init__()
         self.use_rn = bool(use_rn)
         self.params = ["TNREDAMP", "TNREDGAM", "TNREDC", "RNAMP", "RNIDX"]
+
+    def defaults(self):
+        return {p: np.nan for p in self.params}
 
     def _nmodes(self, model):
         v = model.values.get(self.pl_params[2], np.nan)

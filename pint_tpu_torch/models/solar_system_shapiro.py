@@ -26,6 +26,9 @@ class SolarSystemShapiro(DelayComponent):
         super().__init__()
         self.params = ["PLANET_SHAPIRO"]
 
+    def defaults(self):
+        return {"PLANET_SHAPIRO": 0.0}
+
     def delay(self, values, batch, ctx, delay_accum):
         n = _unit_vector(values["RAJ"], values["DECJ"])
         return _obj_shapiro(batch.obs_sun_pos, n, T_SUN_S)

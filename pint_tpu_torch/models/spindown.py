@@ -24,6 +24,11 @@ class Spindown(PhaseComponent):
                                  range(1, num_freq_derivs + 1)]
                        + ["PEPOCH"])
 
+    def defaults(self):
+        d = {f"F{k}": 0.0 for k in range(1, self.num_freq_derivs + 1)}
+        d["PEPOCH"] = 0.0
+        return d
+
     def prepare(self, toas, model, device):
         pepoch_ticks = model.epoch_ticks.get(
             "PEPOCH", int(round(model.values["PEPOCH"] * 2**32)))

@@ -7,6 +7,14 @@ component's ctx is built once on ``device``, the TZR row gets its own
 ctx, and the pure functions below evaluate the delay fold, the phase
 fold and the TZR-referenced phase from a ``{name: 0-d tensor}`` values
 dict.
+
+A model that :func:`pint_tpu_torch.parallel.pta.make_superset_models`
+aligned onto the union of a batch's components carries
+``_superset_inert``: prepare then gives every component's ctx (data and
+TZR alike) a 0/1 ``__gate__``, and the folds and the linear design
+columns multiply each component's contribution by it, so a component
+added only for the alignment contributes nothing (pint_tpu
+timing_model.py:566-594).  Without it every path is unchanged.
 """
 
 from __future__ import annotations
@@ -121,12 +129,15 @@ def _ctx_patch_rows(old_ctx, mini_ctx, n0, n1, n_rows):
     other entry (scalars, static depths) must equal the mini's.  None on
     any disagreement, and the caller runs the component's prepare
     instead.  Rows past ``n1`` keep the old pad values (weight
-    ~1e-44)."""
+    ~1e-44).  The superset gate is left out; the caller carries it."""
     dn = n1 - n0
-    if dn <= 0 or set(old_ctx) != set(mini_ctx):
+    if dn <= 0 or set(old_ctx) - {"__gate__"} \
+            != set(mini_ctx) - {"__gate__"}:
         return None
     out = {}
     for k, v_old in old_ctx.items():
+        if k == "__gate__":
+            continue
         v_mini = mini_ctx[k]
         if isinstance(v_old, torch.Tensor) and v_old.dim() >= 1 \
                 and v_old.shape[0] == n_rows:
@@ -179,6 +190,13 @@ class PreparedModel:
             self.tzr_batch = tzr.to_batch(device)
             self.tzr_ctx = {type(c).__name__: c.prepare(tzr, model, device)
                             for c in model.components}
+        inert = getattr(model, "_superset_inert", None)
+        if inert is not None:
+            for ctx_map in (self.ctx, self.tzr_ctx or {}):
+                for name, c_ctx in ctx_map.items():
+                    c_ctx["__gate__"] = torch.tensor(
+                        0.0 if name in inert else 1.0, dtype=torch.float64,
+                        device=device)
         self._noise_basis_comps = [
             c for c in model.noise_components
             if c.n_basis(self.ctx[type(c).__name__]) > 0]
@@ -222,6 +240,8 @@ class PreparedModel:
                                           n_rows)
                 if got is None:
                     got = c.prepare(table, model, self.device)
+            if "__gate__" in old_ctx:
+                got["__gate__"] = old_ctx["__gate__"]
             ctx[name] = got
         new = object.__new__(PreparedModel)
         new.model = model
@@ -353,7 +373,11 @@ class PreparedModel:
             if frozen is not None and name in frozen:
                 total = total + frozen[name]
                 continue
-            total = total + c.delay(values, batch, ctx_map[name], total)
+            ctx = ctx_map[name]
+            d = c.delay(values, batch, ctx, total)
+            if "__gate__" in ctx:
+                d = d * ctx["__gate__"]
+            total = total + d
         return total
 
     def _phase_sum_given_delay(self, values, batch, ctx_map, delay):
@@ -363,12 +387,21 @@ class PreparedModel:
         frac = torch.zeros(batch.ticks.shape, dtype=torch.float64,
                            device=batch.ticks.device)
         for c in self.model.phase_components:
-            ph = c.phase(values, batch, ctx_map[type(c).__name__], delay)
+            ctx = ctx_map[type(c).__name__]
+            ph = c.phase(values, batch, ctx, delay)
+            gate = ctx.get("__gate__")
             if isinstance(ph, tuple):
-                n = n + ph[0]
-                frac = frac + ph[1]
+                if gate is not None:
+                    # the integer turns cannot be scaled: an inert phase
+                    # component contributes (0, 0)
+                    n = n + torch.where(gate > 0, ph[0],
+                                        torch.zeros_like(ph[0]))
+                    frac = frac + ph[1] * gate
+                else:
+                    n = n + ph[0]
+                    frac = frac + ph[1]
             else:
-                frac = frac + ph
+                frac = frac + (ph if gate is None else ph * gate)
         return n, frac
 
     def _phase_sum(self, values, batch, ctx_map, frozen=None):
@@ -428,7 +461,10 @@ class PreparedModel:
                 name = type(c).__name__
                 if name not in want:
                     continue
-                d = c.delay(v, batch, ctx_map[name], total)
+                ctx = ctx_map[name]
+                d = c.delay(v, batch, ctx, total)
+                if "__gate__" in ctx:
+                    d = d * ctx["__gate__"]
                 out[name] = d
                 total = total + d
             return out
@@ -533,14 +569,17 @@ class PreparedModel:
         for c in self.model.delay_components:
             cname = type(c).__name__
             ctx = ctx_map[cname]
+            gate = ctx.get("__gate__")
             for nm in want:
                 if c.has_param(nm):
-                    add(delay_cols, nm,
-                        c.d_delay_d_param(values, batch, ctx, delay, nm))
+                    col = c.d_delay_d_param(values, batch, ctx, delay, nm)
+                    add(delay_cols, nm, col if gate is None else col * gate)
             if frozen is not None and cname in frozen:
                 d = frozen[cname]
             else:
                 d = c.delay(values, batch, ctx, delay)
+                if gate is not None:
+                    d = d * gate
             delay = delay + d
 
         if delay_cols:
@@ -553,10 +592,11 @@ class PreparedModel:
 
         for c in self.model.phase_components:
             ctx = ctx_map[type(c).__name__]
+            gate = ctx.get("__gate__")
             for nm in want:
                 if c.has_param(nm):
-                    add(phase_cols, nm,
-                        c.d_phase_d_param(values, batch, ctx, delay, nm))
+                    col = c.d_phase_d_param(values, batch, ctx, delay, nm)
+                    add(phase_cols, nm, col if gate is None else col * gate)
 
         cols = []
         for nm in want:

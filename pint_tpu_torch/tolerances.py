@@ -398,3 +398,42 @@ def stream_moments_limit(n_rows, abs_sum):
     absolute values of its terms (and of the S it adds to), the
     worst-case bound of a recursive sum of n terms."""
     return (n_rows + 1) * _EPS * np.asarray(abs_sum)
+
+
+# --------------------------------------------------------------------------
+# the PTA batch (pint_tpu_torch/data/pta68_500_batch.npz, 68 pulsars x 500
+# TOAs at gbt, and the tests' 4-pulsar array)
+# --------------------------------------------------------------------------
+
+#: the batch's residuals against JAX's [s], for its chi^2 at fixed
+#: values: on the CPU the port's residuals of the 68 x 500 batch differ
+#: from JAX's by up to 2.477e-13 s (every member 2.1-2.5e-13: an ulp or
+#: two of each TOA's ~500 s Roemer delay through gbt's geometry; the
+#: tests' 4-pulsar array 7.0e-14 s).  On the card the fold's
+#: transcendentals round by CUDA's library, which may double that, as
+#: MCMC_LNP_ABS allows; so twice the CPU's maximum.
+PTA_RESID_DIFF_S = 2 * 2.477e-13
+
+
+def pta_chi2_limit(cinv_r, sigma, valid=None):
+    """The limit on each member's chi^2 = r^T C^-1 r against JAX's that
+    the residuals' disagreement alone allows, absolute: residuals that
+    move by at most dr = :data:`PTA_RESID_DIFF_S` move it by 2 dr^T C^-1
+    r + dr^T C^-1 dr, at most 2 dr |C^-1 r|_1 + dr^2 sum 1 / sigma^2
+    (C^-1 <= N^-1).  ``cinv_r`` is C^-1 r: r / sigma^2 for the white
+    chi^2 of ``PTABatch.chisq`` and of a WLS fit, the Woodbury solve for
+    a GLS fit's.  ``cinv_r`` and ``sigma`` (k, n); ``valid`` masks pad
+    rows out.  On the CPU the 68 x 500 batch's white chi^2 differs from
+    JAX's by up to 3.4e-6 at chi^2 ~ 300 (9.6e-9 relative), 2.9 % of
+    this limit (5.8 % of the bound at the measured dr).  A fit's chi^2
+    is held to this plus the conditioning part of
+    :func:`fit_tolerances`: on few TOAs this part is the larger (the
+    tests' 40-TOA GLS member: 1.1e-8 relative, over the nominal 1e-8;
+    ROADMAP watch list, ulp-level residuals)."""
+    w = 1.0 / np.asarray(sigma, np.float64) ** 2
+    a = np.abs(np.asarray(cinv_r, np.float64))
+    if valid is not None:
+        valid = np.asarray(valid, bool)
+        w, a = np.where(valid, w, 0.0), np.where(valid, a, 0.0)
+    dr = PTA_RESID_DIFF_S
+    return 2.0 * dr * np.sum(a, axis=-1) + dr * dr * np.sum(w, axis=-1)

@@ -48,6 +48,11 @@ from tests.test_torch_wls import par_tim  # noqa: F401  (fixture)
 from tools.export_torch_grid_case import white_par
 from tools.export_torch_mcmc_case import replay_draws, sampler_keys
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 NW = 8
 
 

@@ -45,6 +45,11 @@ from pint_tpu_torch.linalg import (KronGram, _gram_split,
                                    kron_gram_precompute, ragged_stack)
 from tools.export_torch_pta_case import pta_case_arrays
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 NMODES = 3
 RED = "TNRedAmp -13.5\nTNRedGam 4.0\nTNRedC 6\n"
 POINTS = ((-14.0, 13 / 3), (-13.2, 3.0), (-15.5, 5.5))

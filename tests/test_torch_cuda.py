@@ -1088,3 +1088,56 @@ def test_dense_lnlike_on_card_counts_launches(card):
     for ref in (cpu.lnlike(la, ga), kron.lnlike(la, ga),
                 float(arrays["ref_lnlike"])):
         assert abs(got / ref - 1) <= tol.GW_LNLIKE_REL
+
+
+@pytest.mark.parametrize("k", [1, 8, 68])
+def test_k1_pulsar_axis_one_launch(card, k):
+    """K1 under torch.func.vmap over a pulsar axis, as the PTA batch's
+    fold calls it: one F0 a pulsar against its own (k, 500) ticks is one
+    launch, bit-identical to the plain version per pulsar."""
+    from pint_tpu_torch import fixedpoint as fp
+
+    rng = np.random.default_rng(k)
+    f0 = torch.tensor(100.0 + 400.0 * rng.random(k))
+    t = torch.tensor(np.round(rng.uniform(-1, 1, (k, 500)) * 1.5e8
+                              * 2.0**32).astype(np.int64))
+    k0 = fp.K1.launches
+    n, frac = torch.func.vmap(fp.phase_f0_t)(f0.to(card), t.to(card))
+    assert fp.K1.launches == k0 + 1
+    for i in range(k):
+        n_ref, frac_ref = fp.phase_f0_t_plain(f0[i], t[i])
+        assert torch.equal(n[i].cpu(), n_ref)
+        assert torch.equal(frac[i].cpu().view(torch.int64),
+                           frac_ref.view(torch.int64))
+
+
+@pytest.mark.parametrize("k", [1, 8, 68])
+def test_k7_pulsar_axis_one_launch(card, k):
+    """K7 under torch.func.vmap over a pulsar axis with each pulsar's own
+    err and zero-weight pad rows (err 1e30), as the batched WLS step
+    calls it: one launcher call, rw and the equal-norm columns of Jn
+    bit-identical to the plain version, the rest within WLS_WHITEN_REL."""
+    from pint_tpu_torch import linalg as tl
+    from pint_tpu_torch import tolerances as tol
+
+    rng = np.random.default_rng(100 + k)
+    n, p = 500, 8
+    r = torch.tensor(rng.standard_normal((k, n)) * 1e-6)
+    J = torch.tensor(rng.standard_normal((k, n, p)) * 10.0 ** rng.uniform(
+        -8, 8, p))
+    J[:, :, 3] = 0.0  # a pinned parameter's column
+    err = torch.tensor(rng.uniform(0.5, 2.0, (k, n)) * 1e-6)
+    err[:, 450:] = 1e30
+    r[:, 450:] = 0.0
+    J[:, 450:] = 0.0
+    k0 = tl.K7.launches
+    a = torch.func.vmap(tl.wls_whiten)(r.to(card), J.to(card), err.to(card))
+    assert tl.K7.launches == k0 + 1
+    pl = tl.wls_whiten_plain(r, J, err)
+    assert torch.equal(a[0].cpu(), pl[0])
+    assert torch.all(a[2][:, 3] == 1.0)
+    same = torch.all(a[2].cpu() == pl[2], dim=-1)
+    assert torch.equal(a[1].cpu()[same], pl[1][same])
+    for x, q in zip(a[1:], pl[1:]):
+        assert tol.vector_rel(x.cpu().numpy(), q.numpy()) \
+            <= tol.WLS_WHITEN_REL

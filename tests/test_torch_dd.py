@@ -17,6 +17,11 @@ import torch
 from pint_tpu import dd as jdd
 from pint_tpu_torch import dd
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N = 2000
 
 

@@ -38,6 +38,11 @@ from pint_tpu_torch.models.builder import get_model, get_model_and_toas
 from tests.test_torch_wls import par_tim  # noqa: F401  (fixture)
 from tools.export_torch_grid_case import white_par
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 START = {"SINI": 0.99}
 CASES = {"gls": (DownhillGLSFitter, JDownhillGLS, GLSFitter),
          "wls": (DownhillWLSFitter, JDownhillWLS, WLSFitter)}

@@ -15,6 +15,11 @@ import torch
 from pint_tpu import fixedpoint as jfp
 from pint_tpu_torch import fixedpoint as tfp
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _cases(seed, n=4000):
     rng = np.random.default_rng(seed)

@@ -45,6 +45,11 @@ from pint_tpu_torch.residuals import Residuals
 from tests.test_torch_wls import par_tim  # noqa: F401  (fixture)
 from tools.export_torch_grid_case import white_par
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N, K_PRE, K_E, K_POST = 300, 7, 20, 2
 
 

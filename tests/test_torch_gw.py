@@ -50,6 +50,11 @@ from pint_tpu_torch.linalg import (KronPhi, kron_chi2_logdet,
                                    ragged_stack, woodbury_solve)
 from tools.export_torch_pta_case import noise_draws, pta_case_arrays
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 NMODES = 4
 RED = "TNRedAmp -13.5\nTNRedGam 4.0\nTNRedC 8\n"
 CPU = "cpu"

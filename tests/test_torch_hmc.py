@@ -52,6 +52,11 @@ from pint_tpu_torch.linalg import (KronGram, _k5_shape,
 from tools.export_torch_hmc_case import replay_draws
 from tools.export_torch_pta_case import pta_case_arrays
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 NMODES = 4
 GWB_GAMMA = 13.0 / 3.0
 RED = "TNRedAmp -13.5\nTNRedGam 4.0\nTNRedC 4\n"

@@ -55,6 +55,11 @@ from pint_tpu_torch.linalg import (crn_capacity, crn_capacity_bwd_plain,
 from tools.export_torch_hmc_case import replay_draws
 from tools.export_torch_pta_case import pta_case_arrays
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 NMODES = 4
 CPU = "cpu"
 

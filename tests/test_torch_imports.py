@@ -21,6 +21,11 @@ from pathlib import Path
 import pytest
 import torch
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "pint_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "pint_tpu")

@@ -46,6 +46,11 @@ from pint_tpu_torch.time import mjd, scales
 from pint_tpu_torch.toa import TOAs, read_tim
 from tools.export_torch_case import _table_arrays
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
 RECEIVERS = ((np.linspace(1150.0, 1750.0, 5), "L-wide", 1.0),

@@ -20,6 +20,11 @@ import torch
 from pint_tpu import linalg as jl
 from pint_tpu_torch import linalg as tl
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 N, P, K_PRE, K_E, K_POST = 300, 5, 2, 20, 4
 
 

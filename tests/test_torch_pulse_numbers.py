@@ -40,6 +40,11 @@ from tools.export_torch_pn_case import (GAP_DF0, PAR, PHASE_AT,
                                         write_gap_tim, write_pn_tim,
                                         write_spin_case)
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -36,6 +36,11 @@ from pint_tpu_torch import sampler as ts
 from pint_tpu_torch import tolerances as tol
 from tools.export_torch_mcmc_case import replay_draws
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 def _exact_fma(a, b, c):
     return np.array([float(Fraction(x) * Fraction(y) + Fraction(z))

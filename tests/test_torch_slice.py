@@ -36,6 +36,11 @@ from pint_tpu_torch.residuals import Residuals as TResiduals
 from tools.export_torch_case import (b1855_model, case_arrays, epoch_toas,
                                      reference_answers)
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def case():

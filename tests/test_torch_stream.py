@@ -45,6 +45,11 @@ from pint_tpu_torch.models import timing_model as ttm
 from pint_tpu_torch.models.builder import get_model
 from pint_tpu_torch.toa import get_TOAs
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 BASE_PAR = """

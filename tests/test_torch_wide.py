@@ -20,6 +20,11 @@ from pint_tpu_torch.gw.common import CommonProcess
 from pint_tpu_torch.gw.hmc import GWBPosterior
 from pint_tpu_torch.linalg import _k5_shape
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -34,6 +34,11 @@ from pint_tpu_torch.fitter import GLSFitter, WLSFitter, wls_gn_solve
 from pint_tpu_torch.linalg import wls_whiten, wls_whiten_plain
 from pint_tpu_torch.models.builder import get_model_and_toas
 
+# one intra-op thread: the tests run at small sizes, and pytest-xdist's
+# workers share the machine's cores (torch's default of one thread per
+# core in every worker oversubscribes them several times over)
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 
