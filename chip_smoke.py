@@ -10,8 +10,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of every hand-written kernel from ``pint_tpu_torch/csrc``
-   (K1-K11, K11b and the wide forms K5w/K5bw, one nvcc per source, all started
-   together), with its time;
+   (K1-K12, K11b, K12b and the wide forms K5w/K5bw, one nvcc per source,
+   all started together), with its time;
 3. kernel K1 (exact fixed-point phase) against its plain PyTorch
    version run on the CPU: 10^6 random (F0, t) pairs plus poison cases,
    ``n`` and the bits of ``frac`` identical;
@@ -231,6 +231,24 @@ the closing ``{"ok": true, ...}`` line is not printed:
     step's and the bound;
     ``mcmc autocorr``: ``EnsembleSampler.run_mcmc_autocorr`` on a 2-D
     Gaussian from the generator: converged, variance within 15 %;
+23a. the photon path on ``pint_tpu_torch/data/photon_fermi_1e5.npz``
+    (10^5 weighted Fermi-like photons of a 300 Hz DD pulsar):
+    ``photon ingest`` (the port's ``write_events`` and
+    ``load_Fermi_TOAs``: ticks, weights and rows identical to the
+    case's, the wall); ``photon mcmc`` and ``photon mcmc template``
+    (``MCMCFitter``, analytic and ``fit_template=True``, 32 walkers x
+    200 steps with JAX's draws: positions bit-identical and the same
+    decisions up to the first near tie decided otherwise, lnp within
+    ``tolerances.photon_mcmc_lnp_limit``, lnposterior at 64 vectors;
+    K12 one launch set per posterior call, K9 3 a step; walls,
+    evaluations/s, busy share, peak memory); ``photon binned`` (the
+    64-bin fitter's lnposterior, one K12 set); ``lc fit``
+    (``LCFitter`` from the case's start: parameters and lnL within
+    ``tolerances.lcfit_limits`` of the nearest of JAX's fit and its 6
+    perturbed fits, lnL and its gradient at 4 points, the
+    H-test of the card's phases, K12 and K12b launches); ``k12`` (K12
+    and K12b against their plain versions at 16 x 10^5, 1 x 10^5 and a
+    5-type template, bit-identical run to run, times, bounds, ptxas);
 24. ``stream gls`` / ``stream wls``: the streaming appends of the
     par/tim case (the par; the white par) in the 10842 bucket:
     ``fit_toas(maxiter=3)``, ``stream_prepare()`` and
@@ -260,7 +278,8 @@ the closing ``{"ok": true, ...}`` line is not printed:
     grid for K8, the GW path for K3 and K4, the HMC run for K5, K5b and
     K6, the wide case for K5w and K5bw, the GLS chain for K9, the GLS
     stream for K10, the dense CRN path for K11, the dense posterior for
-    K11b; K10's times at the
+    K11b, the analytic photon chain for K12, the template fit for K12b;
+    K10's times at the
     fold's shape, K11's at the grid's chunk of 9 points), error
     against the plain version, time, plain-version
     time, bound, and the library call's time where one PyTorch call
@@ -434,10 +453,11 @@ def phase_build():
     from pint_tpu_torch.gw.os import K4
     from pint_tpu_torch.linalg import K2, K3, K5, K7, K8, K10, K11
     from pint_tpu_torch.sampler import K9
+    from pint_tpu_torch.templates import K12
 
     t0 = time.time()
     libs = _cuda.build([k.source for k in (K1, K2, K3, K4, K5, K6, K7,
-                                           K8, K9, K10, K11)])
+                                           K8, K9, K10, K11, K12)])
     dt = time.time() - t0
     log(f"build: {len(libs)} kernels in {dt:.2f} s -> "
         f"{sorted(str(p) for p in libs.values())}")
@@ -3428,6 +3448,48 @@ def fit_checksums():
     return out
 
 
+def fit_walls(reps=20):
+    """Warm walls of the 10k case's ``GLSFitter`` and ``WLSFitter``
+    ``fit_toas(maxiter=3)`` on the card, for ``tools/torch_turns.py``:
+    after a cold fit, ``reps`` fits from the same start, each timed to a
+    synchronize (the median and the least, in seconds), and the kernels
+    of one more under the profiler."""
+    import copy
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pint_tpu_torch.convert import load_case
+    from pint_tpu_torch.fitter import GLSFitter, WLSFitter
+
+    _, model, toas, tzr = load_case()
+    out = {}
+    for name, cls in (("gls", GLSFitter), ("wls", WLSFitter)):
+        m = copy.deepcopy(model)
+        start = dict(m.values)
+        f = cls(toas, m, tzr, device="cuda")
+        f.fit_toas(maxiter=3)
+        walls = []
+        for _ in range(reps):
+            m.values.update(start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f.fit_toas(maxiter=3)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        m.values.update(start)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            f.fit_toas(maxiter=3)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA)
+        out[name] = {"median_s": float(np.median(walls)),
+                     "min_s": min(walls), "kernels": kernels}
+    return out
+
+
 def k11b_synthetic(p, m2, n_noise, g, seed=12):
     """K11b's inputs (gS, gld, phi_noise (G, kn), phi_gw, M) on the
     card: :func:`k11_synthetic`'s prior with each point's own noise
@@ -4289,6 +4351,484 @@ def phase_pta_homogeneous(pairs):
     return out
 
 
+#: the photon chains' kernels by name in a profile
+PHOTON_GROUPS = {"K1": ["phase_f0_t"], "K12": ["k12_partial", "k12_reduce"],
+                 "K9": ["stretch_"]}
+
+#: fp64 operations charged to each step of K12 and K12b in their bound:
+#: an add, multiply or compare is 1; a division (a reciprocal and two
+#: Newton steps with the correction) 8; exp and log (libdevice's
+#: range reduction and a degree ~10 polynomial) 20 each; sin or cos
+#: (Payne-Hanek-free reduction and two polynomials) 24; fmod for |x| < 2
+#: 4.  Per (walker, photon), by component type: the wrapped Gaussian's 7
+#: wraps are each an add, a division, two multiplies, an exp and an add.
+K12_OPS = {"phi": 6, "gauss": 7 * (1 + 8 + 2 + 20 + 1) + 1 + 8 + 2,
+           "lor": 2 + 24 + 1 + 8 + 2, "vm": 4 + 24 + 20 + 8 + 2,
+           "gauss2": 8 + 7 * (1 + 8 + 2 + 20 + 1) + 8 + 3,
+           "lor2": 8 + 2 + 24 + 1 + 8 + 3, "x": 3, "log": 20 + 2}
+#: the gradient's own work per (walker, photon), the forward's density
+#: inside it (its exps and cos counted once) and no log: the phase, x
+#: and g = w / x (a division and the clamp's compare) with the
+#: background's add ("base"); per component, the density and its
+#: derivative terms: the Gaussians' 7 wraps are each an add, a division,
+#: z^2, the exp's argument, an exp and three multiply-adds of the sums
+#: e, e z, e z^2, then 6 divisions and 3 multiplies; the Lorentzians and
+#: the von Mises add a sin of the angle whose cos the density takes; the
+#: two-sided types the split d (9) and the side's compare.  Each live
+#: slot of a component's packed row (K12B_SLOTS) is one multiply-add of
+#: g into its sum, 2.
+K12B_OPS = {"base": 6 + 8 + 1 + 1,
+            "gauss": 1 + 7 * (1 + 8 + 1 + 1 + 20 + 5) + 6 * 8 + 3 + 2,
+            "lor": 2 + 24 + 1 + 8 + 24 + 8 + 3 + 8 + 1 + 2,
+            "vm": 2 + 24 + 1 + 1 + 20 + 8 + 24 + 4 + 2 + 8 + 1 + 2,
+            "gauss2": 9 + 1 + 7 * (1 + 8 + 1 + 1 + 20 + 5) + 6 * 8 + 6 + 2,
+            "lor2": 9 + 1 + 1 + 24 + 1 + 8 + 24 + 1 + 8 + 8 + 1 + 1 + 3
+            + 1 + 2,
+            "x": 3, "slot": 2}
+#: the slots of each type's packed row that its derivative writes per
+#: photon (the two-sided types: 0, 1, and one side's 3)
+K12B_SLOTS = {"gauss": 4, "lor": 4, "vm": 4, "gauss2": 5, "lor2": 5}
+K12_NAMES = ["gauss", "lor", "vm", "gauss2", "lor2"]
+
+
+def k12_work(codes, w, n, weighted, backward=False):
+    """(bytes, operations) of one K12 (or K12b) call over ``w`` walkers
+    and ``n`` photons with component types ``codes``: the phases (w x n
+    float64) and weights read once, the output written once; the
+    operations from :data:`K12_OPS` / :data:`K12B_OPS`."""
+    names = [K12_NAMES[c] for c in codes]
+    if backward:
+        per = K12B_OPS["base"] + (K12B_OPS["x"] if weighted else 0) + sum(
+            K12B_OPS[c] + K12B_SLOTS[c] * K12B_OPS["slot"] for c in names)
+        q = 1 + 8 * len(codes)
+    else:
+        per = K12_OPS["phi"] + sum(K12_OPS[c] for c in names) \
+            + (K12_OPS["x"] if weighted else 0) + K12_OPS["log"]
+        q = 1
+    n_bytes = 8 * (w * n + (n if weighted else 0) + w * q)
+    return n_bytes, per * w * n
+
+
+def photon_case():
+    from pint_tpu_torch.convert import PHOTON_FERMI_1E5, load_arrays
+
+    return load_arrays(PHOTON_FERMI_1E5)
+
+
+def phase_photon_ingest(ref):
+    """The photons written by the port's ``write_events`` (a barycentred
+    Fermi-like event file with a WEIGHT column) into a temporary
+    directory and read by ``load_Fermi_TOAs``: the ticks' hash, the
+    weights and the rows identical to the case's; the wall (10^5 TOA
+    objects and flag dicts built on the host)."""
+    import hashlib
+    import shutil
+    import tempfile
+
+    from pint_tpu_torch.event_toas import load_Fermi_TOAs
+    from pint_tpu_torch.fits import write_events
+    from pint_tpu_torch.models.builder import get_model
+
+    d = tempfile.mkdtemp(prefix="photon_")
+    try:
+        par = os.path.join(d, "psr.par")
+        with open(par, "w") as fh:
+            fh.write(str(ref["par_text"]))
+        fits = os.path.join(d, "events.fits")
+        t0 = time.time()
+        write_events(fits, ref["met"], mjdref=(int(ref["mjdref_i"]),
+                                               float(ref["mjdref_f"])),
+                     timesys="TDB", timeref="SOLARSYSTEM",
+                     extra_cols={"WEIGHT": ref["weights"]})
+        write_s = time.time() - t0
+        t0 = time.time()
+        toas = load_Fermi_TOAs(fits)
+        load_s = time.time() - t0
+        model = get_model(par)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    sha = hashlib.sha256(np.ascontiguousarray(
+        toas.ticks, np.int64).tobytes()).hexdigest()
+    w = np.array(toas.get_flag_values("weight", astype=float))
+    res = {"photons": len(toas), "write_s": write_s, "load_s": load_s,
+           "ticks_identical": sha == str(ref["ticks_sha256"]),
+           "weights_identical": bool(np.array_equal(w, ref["weights"])),
+           "rows_identical": bool(np.array_equal(
+               toas.fits_rows, np.arange(len(w))))}
+    log("photon ingest: " + json.dumps(res))
+    if not (res["ticks_identical"] and res["weights_identical"]
+            and res["rows_identical"]):
+        raise AssertionError("photon ingest differs from the case")
+    res.update(toas=toas, model=model)
+    return res
+
+
+def _photon_limit(ref, n):
+    from pint_tpu_torch import tolerances as tol
+
+    return tol.photon_mcmc_lnp_limit(n, float(ref["lnx_abs_sum"]),
+                                     float(ref["dlnx_dphi_abs_sum"]))
+
+
+def phase_photon_mcmc(kind, ing, ref):
+    """The photon MCMC on the card (``a``: the analytic template fixed;
+    ``b``: ``fit_template=True``), ``MCMCFitter(..., device="cuda")``
+    and ``run_chain`` of 32 walkers x 200 steps with JAX's draws, held to
+    the case up to the first near tie decided otherwise
+    (``tolerances.photon_parting_step``): positions bit-identical, the
+    same decisions, lnp within ``tolerances.photon_mcmc_lnp_limit``;
+    lnposterior at the spread of vectors within it.  Launches of K1, K9,
+    K12 during the chain (K12: one set per posterior call, 1 + 2 x 200;
+    K9: 3 a step); cold and warm wall, posterior evaluations/s, busy
+    share and device time by group of a warm 20-step chain, peak
+    memory."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import template_from_arrays
+    from pint_tpu_torch.fixedpoint import K1
+    from pint_tpu_torch.mcmc_fitter import MCMCFitter
+    from pint_tpu_torch.sampler import K9, decision_margins, run_chain
+    from pint_tpu_torch.templates import K12
+
+    model = copy.deepcopy(ing["model"])
+    f = MCMCFitter(ing["toas"], model, template_from_arrays(ref, "template"),
+                   fit_template=kind == "b", device="cuda")
+    names = [str(n) for n in ref[f"{kind}_param_names"]]
+    if list(f.param_names) != names:
+        raise AssertionError(f"photon mcmc {kind}: free parameters "
+                             f"{f.param_names} against {names}")
+    limit = _photon_limit(ref, len(ing["toas"]))
+    sx = torch.tensor(ref[f"{kind}_spread_x"], device="cuda")
+    with torch.no_grad():
+        lnp_s = torch.func.vmap(f.lnposterior)(sx).cpu().numpy()
+    spread_ok = tol.photon_lnp_ok(lnp_s, ref[f"{kind}_lnpost"], limit)
+    spread_err = float(np.max(np.abs(lnp_s - ref[f"{kind}_lnpost"])))
+    x0 = ref[f"{kind}_x0"]
+    nsteps = int(ref["nsteps"])
+    draws = tuple(ref[f"{kind}_draw_{k}"] for k in ("u", "idx", "uacc"))
+    kernels = {"K1": K1, "K9": K9, "K12": K12}
+
+    def chain(n=nsteps):
+        with torch.no_grad():
+            out = run_chain(f.lnposterior, x0, n, device="cuda",
+                            draws=tuple(d[:n] for d in draws))
+        torch.cuda.synchronize()
+        return out
+
+    # the main path: counts reset just before, read just after
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = chain()
+    cold_s = time.time() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    calls = 1 + 2 * nsteps
+    margin, _, _ = decision_margins(out, draws)
+    upto = tol.photon_parting_step(margin, out["accepted"],
+                                   ref[f"{kind}_accepted"], limit)
+    jc, jl = ref[f"{kind}_chain"], ref[f"{kind}_lnp"]
+    same_steps = np.all(out["chain"] == jc, axis=(1, 2))
+    pos_ok = bool(same_steps[:upto].all())
+    dec_ok = bool(np.array_equal(out["accepted"][:upto],
+                                 ref[f"{kind}_accepted"][:upto]))
+    lnp_ok = tol.photon_lnp_ok(out["lnp"][:upto], jl[:upto], limit)
+    fin = np.isfinite(jl[:upto])
+    lnp_err = float(np.max(np.abs(out["lnp"][:upto] - jl[:upto])[fin]))
+    acc = float(np.mean(out["counts"].sum(axis=1) / x0.shape[0]))
+    fmargin = np.abs(margin[:upto][np.isfinite(margin[:upto])])
+    t0 = time.time()
+    chain()
+    warm_s = time.time() - t0
+    short = min(20, nsteps)
+    t0 = time.time()
+    chain(short)
+    warm20_s = time.time() - t0
+    busy, dev_ms, shares = trace_breakdown(
+        lambda: chain(short), warm20_s, f"photon_mcmc_{kind}",
+        PHOTON_GROUPS)
+    res = {"launches": launches, "posterior_calls": calls,
+           "k12_sets_per_posterior_call": launches["K12"] / calls,
+           "parted_at_step": None if upto == nsteps else upto,
+           "steps_compared": upto, "smallest_margin": float(fmargin.min()),
+           "positions_bit_identical": pos_ok, "decisions_same": dec_ok,
+           "lnp_within_limit": lnp_ok, "lnp_max_abs_err": lnp_err,
+           "lnp_limit": limit, "spread_lnp_within_limit": spread_ok,
+           "spread_max_abs_err": spread_err, "acceptance": acc,
+           "jax_acceptance": float(ref[f"{kind}_acceptance"]),
+           "cold_s": cold_s, "warm_s": warm_s,
+           "evals_per_s": x0.shape[0] * nsteps / warm_s,
+           "warm20_s": warm20_s, "busy": busy, "device_ms_20": dev_ms,
+           "peak_gib": peak / 2**30}
+    log(f"photon mcmc {kind}: {x0.shape[0]} walkers x {nsteps} steps over "
+        f"{names}{' + the template' if kind == 'b' else ''}, at "
+        f"{len(ing['toas'])} photons; " + json.dumps(res)
+        + "; device time by group " + json.dumps(shares))
+    if not (pos_ok and dec_ok and lnp_ok and spread_ok):
+        raise AssertionError(f"photon mcmc {kind} disagrees with JAX")
+    if launches["K12"] != calls or launches["K9"] != 3 * nsteps \
+            or launches["K1"] == 0:
+        raise AssertionError(f"photon mcmc {kind}: launches {launches}")
+    if upto < nsteps:
+        log(f"photon mcmc {kind}: a near tie at step {upto} went the other "
+            "way; the chains part there and are compared up to it")
+    elif abs(acc - res["jax_acceptance"]) > 1e-6:
+        raise AssertionError(f"photon mcmc {kind}: acceptance {acc}")
+    res.update(f=f, x0=x0)
+    return res
+
+
+def phase_photon_binned(ing, ref):
+    """The binned fitter (``MCMCFitter`` over the case's 64-bin profile)
+    on the card: lnposterior at the spread of vectors of chain (a)
+    against JAX's, one K12 launch set for the batch."""
+    import copy
+
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.mcmc_fitter import MCMCFitter
+    from pint_tpu_torch.templates import K12
+
+    f = MCMCFitter(ing["toas"], copy.deepcopy(ing["model"]),
+                   np.array(ref["c_bins"]), device="cuda")
+    sx = torch.tensor(ref["a_spread_x"], device="cuda")
+    K12.launches = 0
+    with torch.no_grad():
+        got = torch.func.vmap(f.lnposterior)(sx).cpu().numpy()
+    launches = K12.launches
+    limit = _photon_limit(ref, len(ing["toas"]))
+    ok = tol.photon_lnp_ok(got, ref["c_lnpost"], limit)
+    res = {"points": len(got), "k12_launches": launches,
+           "max_abs_err": float(np.max(np.abs(got - ref["c_lnpost"]))),
+           "limit": limit, "within_limit": ok}
+    log("photon binned: " + json.dumps(res))
+    if not ok or launches != 1:
+        raise AssertionError("photon binned disagrees with JAX")
+    return res
+
+
+def phase_lc_fit(ing, ref):
+    """``LCFitter`` on the card from the case's start template, on JAX's
+    true phases and the weights: the fitted parameters and lnL within
+    ``tolerances.lcfit_limits`` of the nearest of JAX's fit and its
+    fits under the perturbation behind the limit (a fraction of each
+    sigma: ten times JAX's median movement under the port's measured
+    disagreement, rounded up), the iteration count beside JAX's; lnlike
+    and its gradient (K12, K12b) at the start and three perturbed points
+    within ``photon_lnlike_limit`` and ``photon_grad_limit`` +
+    ``k12b_limit``, and within that perturbation (``LCFIT_VALUE_REL``,
+    ``LCFIT_GRAD_REL``) of their sums of |terms|; JAX's fits with one
+    gradient entry wrong, against the same limit (logged);
+    launches of K12 and K12b during the fit; and the weighted H-test of
+    the port's phases at the par's values (the fold on the card) against
+    JAX's of its true phases, within 1e-9 relative."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.convert import template_from_arrays
+    from pint_tpu_torch.eventstats import hmw
+    from pint_tpu_torch.templates import (K12, K12B, LCFitter, pack_template,
+                                          photon_density_plain,
+                                          photon_lnlike_plain)
+
+    phases, w = ref["true_phases"], ref["weights"]
+    tpl = template_from_arrays(ref, "start")
+    K12.launches = K12B.launches = 0
+    t0 = time.time()
+    f = LCFitter(tpl, phases, w, device="cuda")
+    params, lnl = f.fit()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {"K12": K12.launches, "K12b": K12B.launches}
+    lim = tol.lcfit_limits(ref["lc_fits"], ref["lc_fits_lnlike"],
+                           ref["lc_params"], ref["lc_lnlike"],
+                           ref["lc_sigma"])
+    outcomes = (np.vstack([ref["lc_params"][None], ref["lc_fits"]]),
+                np.concatenate([[float(ref["lc_lnlike"])],
+                                ref["lc_fits_lnlike"]]))
+    nearest = tol.lcfit_nearest(params, lnl, *outcomes, lim)
+    fit_ok = nearest <= 1.0
+    wrong = [tol.lcfit_nearest(p, v, *outcomes, lim)
+             for p, v in zip(ref["lc_wrong"], ref["lc_wrong_lnlike"])]
+    premise = []
+    n = len(phases)
+    ph = torch.tensor(phases, device="cuda")
+    wt = torch.tensor(w, device="cuda")
+    point_errs, point_ok = [], True
+    for p, jv, jg in zip(ref["lc_points"], ref["lc_point_lnlike"],
+                         ref["lc_point_grad"]):
+        v, g = f._val_grad(p)
+        v, g = -float(v), -g.cpu().numpy()
+        q = torch.tensor(p, device="cuda")
+        with torch.no_grad():
+            types, rows, bg = pack_template(tpl, q)
+            s = float(photon_lnlike_plain(ph[None], wt, types, rows[None],
+                                          bg.reshape(1), absolute=True))
+
+        def per_photon(qq):
+            ty, ro, b = pack_template(tpl, qq)
+            fr = photon_density_plain(ph[None], ty, ro[None],
+                                      b.reshape(1))[0]
+            return torch.log(wt * fr + (1.0 - wt))
+
+        terms = torch.func.jacfwd(per_photon)(q).abs().sum(dim=0)
+        terms = terms.cpu().numpy()
+        glim = tol.photon_grad_limit(terms) + tol.k12b_limit(n, terms)
+        vlim = tol.photon_lnlike_limit(n, s)
+        point_errs.append([abs(v - float(jv)) / vlim,
+                           float(np.max(np.abs(g - jg) / glim))])
+        point_ok &= abs(v - float(jv)) <= vlim and bool(
+            np.all(np.abs(g - jg) <= glim))
+        premise.append([abs(v - float(jv)) / s,
+                        float(np.max(np.abs(g - jg) / terms))])
+    premise_ok = all(a <= tol.LCFIT_VALUE_REL and b <= tol.LCFIT_GRAD_REL
+                     for a, b in premise)
+    prep = ing["model"].prepare(ing["toas"], device="cuda")
+    with torch.no_grad():
+        _, frac = prep.phase()
+    h = hmw(torch.remainder(frac, 1.0).cpu().numpy(), w)
+    h_rel = abs(h / float(ref["hmw_true"]) - 1.0)
+    res = {"launches": launches, "nit": f.nit, "jax_nit": int(ref["lc_nit"]),
+           "wall_s": wall, "lnlike": lnl,
+           "jax_lnlike": float(ref["lc_lnlike"]),
+           "nearest_over_limit": nearest,
+           "jax_err_over_limit": tol.lcfit_nearest(
+               params, lnl, ref["lc_params"], [float(ref["lc_lnlike"])],
+               lim),
+           "sigma_fraction": lim["fraction"],
+           "lnlike_limit": lim["lnlike"], "fit_within_limit": fit_ok,
+           "jax_perturbed_moves_sigma": lim["moves"].tolist(),
+           "wrong_gradient_over_limit": wrong,
+           "points_err_over_limit": point_errs, "points_ok": point_ok,
+           "disagreement_over_sums": premise,
+           "disagreement_within_perturbation": premise_ok,
+           "hmw": h, "jax_hmw_true": float(ref["hmw_true"]),
+           "hmw_rel": h_rel}
+    log("lc fit: " + json.dumps(res))
+    if not (fit_ok and point_ok and premise_ok and h_rel <= 1e-9):
+        raise AssertionError("lc fit disagrees with JAX")
+    if launches["K12"] == 0 or launches["K12b"] == 0:
+        raise AssertionError(f"lc fit: launches {launches}")
+    return res
+
+
+def _k12_case(label, frac, wts, types, rows, bg):
+    """K12 and K12b against their plain versions on one set of CUDA
+    inputs: lnL within ``k12_limit``, the density mode bit for bit, the
+    backward within ``k12b_limit`` of the analytic plain K12b and of
+    autograd of the plain forward; each bit-identical run to run; their
+    times, the plain versions' and the bounds."""
+    import torch
+
+    from pint_tpu_torch import tolerances as tol
+    from pint_tpu_torch.templates import (photon_density_plain,
+                                          photon_lnlike_bwd_cuda,
+                                          photon_lnlike_bwd_plain,
+                                          photon_lnlike_cuda,
+                                          photon_lnlike_plain)
+
+    args = (frac, wts, types, rows, bg)
+    n, w = frac.shape[1], max(frac.shape[0], rows.shape[0])
+    got, again = photon_lnlike_cuda(*args), photon_lnlike_cuda(*args)
+    plain = photon_lnlike_plain(*args)
+    lim = tol.k12_limit(n, photon_lnlike_plain(*args, absolute=True)
+                        .cpu().numpy())
+    fdiff = torch.abs(got - plain).cpu().numpy()
+    fwd_ok = bool(np.all(fdiff <= lim))
+    same = torch.equal(got.view(torch.int64), again.view(torch.int64))
+    dens = photon_lnlike_cuda(*args, density=True)
+    dplain = photon_density_plain(frac, types, rows, bg)
+    dens_bits = torch.equal(dens.view(torch.int64), dplain.view(torch.int64))
+    dens_err = float(torch.max(torch.abs(dens - dplain) / torch.abs(dplain)))
+    gb, gb2 = photon_lnlike_bwd_cuda(*args), photon_lnlike_bwd_cuda(*args)
+    bplain = photon_lnlike_bwd_plain(*args)
+    babs = photon_lnlike_bwd_plain(*args, absolute=True).cpu().numpy()
+    r2 = rows.expand(w, -1, -1).clone().requires_grad_(True)
+    b2 = bg.expand(w).clone().requires_grad_(True)
+    out = photon_lnlike_plain(frac, wts, types, r2, b2)
+    ar, ab = torch.autograd.grad(out.sum(), (r2, b2))
+    auto = torch.cat([ab[:, None], ar.reshape(w, -1)], dim=1)
+    blim = tol.k12b_limit(n, babs)
+    bdiff = torch.abs(gb - bplain).cpu().numpy()
+    adiff = torch.abs(gb - auto).cpu().numpy()
+    bwd_ok = bool(np.all(bdiff <= blim) and np.all(adiff <= blim))
+    bsame = torch.equal(gb.view(torch.int64), gb2.view(torch.int64))
+    codes = types.tolist()
+    weighted = wts is not None
+    ms, _ = kernel_ms(lambda: photon_lnlike_cuda(*args))
+    bms, _ = kernel_ms(lambda: photon_lnlike_bwd_cuda(*args))
+    pms = queued_ms(lambda: photon_lnlike_plain(*args), reps=5, warmup=1)
+    bpms = queued_ms(lambda: photon_lnlike_bwd_plain(*args), reps=5,
+                     warmup=1)
+    fb, fo = k12_work(codes, w, n, weighted)
+    bb, bo = k12_work(codes, w, n, weighted, backward=True)
+    bound, by = bound_ms(fb, fo)
+    bbound, bby = bound_ms(bb, bo)
+    res = {
+        "k12": {"max_abs_err": float(np.max(fdiff)),
+                "err_over_limit": float(np.max(fdiff / lim)),
+                "bit_identical_run_to_run": same, "density_bit_identical":
+                    dens_bits, "density_max_rel_err": dens_err,
+                "ms": ms, "plain_ms": pms, "bound_ms": bound,
+                "bound_by": by, "operations": fo, "bytes": fb,
+                "library_ms": None},
+        "k12b": {"max_abs_err": float(np.max(bdiff)),
+                 "max_abs_err_autograd": float(np.max(adiff)),
+                 "err_over_limit": float(np.max(
+                     np.maximum(bdiff, adiff) / np.maximum(blim, 1e-300))),
+                 "bit_identical_run_to_run": bsame, "ms": bms,
+                 "plain_ms": bpms, "bound_ms": bbound, "bound_by": bby,
+                 "operations": bo, "bytes": bb, "library_ms": None}}
+    log(f"k12 {label} ({w} x {n}, types {codes}): " + json.dumps(res))
+    if not (fwd_ok and same and bwd_ok and bsame
+            and dens_err <= 4 * np.finfo(np.float64).eps):
+        raise AssertionError(f"k12 {label} disagrees with its plain "
+                             "versions")
+    return res
+
+
+def phase_k12(mc_b, ref):
+    """K12 and K12b (:func:`_k12_case`) at the template chain's shape (16
+    walkers x 10^5 photons, a template row per walker: the first half of
+    its initial ball), at one walker, and at 16 walkers over a 5-type
+    template (every type K12 covers, one shared row); ptxas's registers
+    and spills of the three kernels."""
+    import torch
+
+    from pint_tpu_torch.templates import (K12, LCGaussian, LCGaussian2,
+                                          LCLorentzian, LCLorentzian2,
+                                          LCTemplate, LCVonMises,
+                                          pack_template)
+
+    f = mc_b["f"]
+    x = torch.tensor(mc_b["x0"][:16], device="cuda")
+    with torch.no_grad():
+        frac = torch.func.vmap(f._frac)(x)
+        types, rows, bg = pack_template(f.template, x[:, f.nparams:])
+    wts = f.weights
+    out = {"chain": _k12_case("chain", frac, wts, types, rows, bg),
+           "one walker": _k12_case("one walker", frac[:1], wts, types,
+                                   rows[:1], bg[:1])}
+    five = LCTemplate([LCGaussian(0.03, 0.2), LCLorentzian(0.03, 0.4),
+                       LCVonMises(40.0, 0.6), LCGaussian2(0.02, 0.04, 0.75),
+                       LCLorentzian2(0.02, 0.05, 0.9)],
+                      norms=[0.15, 0.1, 0.1, 0.1, 0.1])
+    t5, r5, b5 = pack_template(five, torch.tensor(five.params,
+                                                  device="cuda"))
+    out["five types"] = _k12_case("five types", frac, wts, t5, r5[None],
+                                  b5.reshape(1))
+    out["ptxas"] = build_report(K12, ["k12_partial", "k12_reduce",
+                                      "k12b_partial"])["ptxas"]
+    log("k12 ptxas: " + json.dumps(out["ptxas"]))
+    return out
+
+
 def gw_row(name, source, replaces, launches, m):
     return {"name": name, "route": "cuda",
             "source": f"pint_tpu_torch/csrc/{source}", "replaces": replaces,
@@ -4296,6 +4836,31 @@ def gw_row(name, source, replaces, launches, m):
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"]}
+
+
+def photon_phases(run, table):
+    """The photon path's phases (ingest, the two chains, the binned
+    posterior, the template fit, K12 and K12b); returns ``table`` with
+    K12's and K12b's rows, or None when a phase they need failed."""
+    ref = photon_case()
+    ing = run("photon ingest", phase_photon_ingest, ref)
+    mc_a = mc_b = lc = k12 = None
+    if ing is not None:
+        mc_a = run("photon mcmc", phase_photon_mcmc, "a", ing, ref)
+        mc_b = run("photon mcmc template", phase_photon_mcmc, "b", ing, ref)
+        run("photon binned", phase_photon_binned, ing, ref)
+        lc = run("lc fit", phase_lc_fit, ing, ref)
+        if mc_b is not None:
+            k12 = run("k12", phase_k12, mc_b, ref)
+    if table is None or None in (mc_a, lc, k12):
+        return None
+    return table + [
+        gw_row("photon_lnlike", "photon_lnlike.cu",
+               "pint_tpu/templates.py:525", mc_a["launches"]["K12"],
+               k12["chain"]["k12"]),
+        gw_row("photon_lnlike_bwd", "photon_lnlike.cu",
+               "pint_tpu/templates.py:570", lc["launches"]["K12b"],
+               k12["one walker"]["k12b"])]
 
 
 def main():
@@ -4394,6 +4959,7 @@ def main():
                             mc_gls["launches"]["K9"], k9["path"]))
     else:
         table = None
+    table = photon_phases(run, table)
     k10 = st_gls = None
     if ingest is not None:
         from pint_tpu_torch.convert import B1855_STREAM_ANSWERS

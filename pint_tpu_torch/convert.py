@@ -76,6 +76,11 @@ PTA4_WIDE = Path(__file__).resolve().parent / "data" / "pta4_wide.npz"
 #: pta68_500 array (``tools/export_torch_crn_dense_case.py``)
 CRN_DENSE_ANSWERS = Path(__file__).resolve().parent / "data" \
     / "crn_dense_answers.npz"
+#: the photon case (a 300 Hz DD pulsar from 10^5 barycentred, weighted
+#: Fermi-like photons) with the JAX CPU answers of its ingest, photon
+#: MCMC chains and template fit (``tools/export_torch_photon_case.py``)
+PHOTON_FERMI_1E5 = Path(__file__).resolve().parent / "data" \
+    / "photon_fermi_1e5.npz"
 #: the JAX CPU answers of the dense GWB posterior on the pta68_500 array
 #: at two theta of the HMC case (``tools/export_torch_hmc_dense_case.py``)
 HMC_DENSE_ANSWERS = Path(__file__).resolve().parent / "data" \
@@ -191,6 +196,65 @@ def case_to_arrays(model, toas, tzr=None) -> dict:
     out["free_params"] = np.asarray(model.free_params, dtype=np.str_)
     out["psr"] = np.asarray(model.name)
     return out
+
+
+def _primitive_state(prim) -> dict:
+    """A template primitive's constructor arguments (and, for the
+    empirical primitives, their measured state) as JSON-ready values."""
+    name = type(prim).__name__
+    if name == "LCEmpiricalFourier":
+        return {"nharm": int(prim.nharm),
+                "alphas": [float(a) for a in prim.alphas],
+                "betas": [float(b) for b in prim.betas]}
+    if name == "LCKernelDensity":
+        return {"resolution": float(prim.resolution), "bw": prim.bw,
+                "vals": [float(v) for v in prim.vals]}
+    return {f: (int(v) if isinstance(v, (int, np.integer)) else float(v))
+            for f, v in vars(prim).items()}
+
+
+def template_to_arrays(template, prefix="template") -> dict:
+    """A light-curve template of either package as plain arrays:
+    ``<prefix>_spec`` (JSON: each primitive's class name and constructor
+    arguments, or ``"binned"``) and ``<prefix>_params`` (float64: the
+    template's parameter vector, or the bin heights of a binned
+    profile)."""
+    if isinstance(template, (list, np.ndarray)):
+        return {f"{prefix}_spec": np.asarray(json.dumps("binned")),
+                f"{prefix}_params": np.asarray(template, np.float64)}
+    spec = [{"class": type(p).__name__, "args": _primitive_state(p)}
+            for p in template.primitives]
+    return {f"{prefix}_spec": np.asarray(json.dumps(spec)),
+            f"{prefix}_params": np.asarray(template.params, np.float64)}
+
+
+def template_from_arrays(arrays, prefix="template"):
+    """The inverse of :func:`template_to_arrays`: this package's
+    :class:`~pint_tpu_torch.templates.LCTemplate` with the stored
+    parameters, or the bin heights (numpy) of a binned profile."""
+    from pint_tpu_torch import templates as tpl
+
+    spec = json.loads(str(np.asarray(arrays[f"{prefix}_spec"])))
+    params = np.asarray(arrays[f"{prefix}_params"], np.float64)
+    if spec == "binned":
+        return params.copy()
+    prims = []
+    for e in spec:
+        args = dict(e["args"])
+        if e["class"] == "LCEmpiricalFourier":
+            p = tpl.LCEmpiricalFourier(nharm=args["nharm"])
+            p.alphas = np.asarray(args["alphas"])
+            p.betas = np.asarray(args["betas"])
+        elif e["class"] == "LCKernelDensity":
+            p = tpl.LCKernelDensity(bw=args["bw"],
+                                    resolution=args["resolution"])
+            p.vals = np.asarray(args["vals"])
+        else:
+            p = getattr(tpl, e["class"])(**args)
+        prims.append(p)
+    t = tpl.LCTemplate(prims)
+    t.params = params.copy()
+    return t
 
 
 def load_arrays(path) -> dict:

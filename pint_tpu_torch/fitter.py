@@ -118,6 +118,37 @@ def wls_gn_solve(r, J, err):
     return dpar, chi2, cov, diag
 
 
+def guarded(solve, r, J, err, *noise, **kw):
+    """``solve(r, J, err, *noise, **kw)`` with its inputs replaced by
+    zeros (ones for err and for a 1-D noise input such as phi, the
+    identity for a keyword matrix such as ``gram``) and its tensor
+    outputs by NaN when any tensor input is non-finite.  torch's SVD and
+    eigh raise ``LinAlgError`` on a non-finite matrix where the
+    reference's solve returns NaN; with the guard a non-finite step
+    gives a NaN chi^2, which the fit turns into
+    :class:`FitDivergedError` and a downhill fitter counts as worse.
+    Under ``vmap`` (the PTA batch) each member is guarded on its own.
+    A non-tensor input (a structured basis, a flag) passes through.
+    Finite inputs pass through bit for bit."""
+    tensors = [r, J, err] + [t for t in list(noise) + list(kw.values())
+                             if isinstance(t, torch.Tensor)]
+    ok = torch.isfinite(tensors[0]).all()
+    for t in tensors[1:]:
+        ok = ok & torch.isfinite(t).all()
+
+    def fill(t, v):
+        return torch.where(ok, t, torch.full_like(t, v))
+
+    noise = tuple(fill(t, 0.0 if t.dim() == 2 else 1.0)
+                  if isinstance(t, torch.Tensor) else t for t in noise)
+    kw = {k: torch.where(ok, t, torch.eye(t.shape[-1], dtype=t.dtype,
+                                          device=t.device))
+          if isinstance(t, torch.Tensor) else t for k, t in kw.items()}
+    out = solve(fill(r, 0.0), fill(J, 0.0), fill(err, 1.0), *noise, **kw)
+    return tuple(fill(o, float("nan")) if isinstance(o, torch.Tensor)
+                 else o for o in out)
+
+
 # -- streaming appends (module helpers) -------------------------------------
 #
 # An appended night touches the normal equations only through row sums,
@@ -840,7 +871,7 @@ class WLSFitter(Fitter):
         else:
             sigma = self.resids.sigma_at(self._merged(base_values, vec))
         r, J = self._rj(vec, base_values, data)
-        return wls_gn_solve(r, J, sigma)
+        return guarded(wls_gn_solve, r, J, sigma)
 
 
 class GLSFitter(Fitter):
@@ -860,6 +891,7 @@ class GLSFitter(Fitter):
             U, phi = self.resids._noise_basis_phi_at(values)
             gram = None
         r, J = self._rj(vec, base_values, data)
-        dpar, cov, _ncoef, chi2, diag = gls_normal_solve(
-            r, J, sigma, U, phi, gram=gram, with_health=True)
+        dpar, cov, _ncoef, chi2, diag = guarded(
+            gls_normal_solve, r, J, sigma, U, phi, gram=gram,
+            with_health=True)
         return dpar, chi2, cov, diag

@@ -47,8 +47,8 @@ import numpy as np
 import torch
 
 from pint_tpu_torch import resolve_device
-from pint_tpu_torch.fitter import (FitDivergedError, resid_and_design,
-                                   wls_gn_solve)
+from pint_tpu_torch.fitter import (FitDivergedError, guarded,
+                                   resid_and_design, wls_gn_solve)
 from pint_tpu_torch.fixedpoint import renorm_phase
 from pint_tpu_torch.iterate import iterate_fixed
 from pint_tpu_torch.linalg import (gls_normal_solve, su_to_dense,
@@ -61,26 +61,6 @@ __all__ = ["PTABatch", "make_superset_models"]
 
 #: error [s] of a padded TOA: its weight 1e-60 drops out of every sum
 PAD_ERR_S = 1e30
-
-
-def _guarded(solve, r, J, err, *noise):
-    """``solve(r, J, err, *noise)`` for one member, its inputs replaced
-    by zeros (ones for err and phi) and its outputs by NaN when any input
-    is non-finite: torch's SVD and eigh raise on a non-finite matrix
-    where the reference's return NaN, and one member's raise would fail
-    the whole batch.  Finite inputs pass through bit for bit."""
-    ok = torch.isfinite(r).all() & torch.isfinite(J).all() \
-        & torch.isfinite(err).all()
-    for t in noise:
-        ok = ok & torch.isfinite(t).all()
-
-    def fill(t, v):
-        return torch.where(ok, t, torch.full_like(t, v))
-
-    noise = tuple(fill(t, 0.0 if t.dim() == 2 else 1.0) for t in noise)
-    out = solve(fill(r, 0.0), fill(J, 0.0), fill(err, 1.0), *noise)
-    return tuple(fill(o, float("nan")) if isinstance(o, torch.Tensor)
-                 else o for o in out)
 
 
 def _unported(what, item):
@@ -504,10 +484,10 @@ class PTABatch:
                                 tzr_ctx, valid, free_mask)
 
         def body(vec):
-            return vec + _guarded(wls_gn_solve, *rj(vec), err)[0]
+            return vec + guarded(wls_gn_solve, *rj(vec), err)[0]
 
         vec = iterate_fixed(body, vec0, maxiter)
-        _, chi2, cov, _ = _guarded(wls_gn_solve, *rj(vec), err)
+        _, chi2, cov, _ = guarded(wls_gn_solve, *rj(vec), err)
         return vec, chi2, cov
 
     def _fit_one_gls(self, vec0, base_values, batch, ctx, tzr_batch,
@@ -521,11 +501,11 @@ class PTABatch:
                                 tzr_ctx, valid, free_mask)
 
         def body(vec):
-            return vec + _guarded(gls_normal_solve, *rj(vec), err, U,
-                                  phi)[0]
+            return vec + guarded(gls_normal_solve, *rj(vec), err, U,
+                                 phi)[0]
 
         vec = iterate_fixed(body, vec0, maxiter)
-        _, cov, _, chi2 = _guarded(gls_normal_solve, *rj(vec), err, U, phi)
+        _, cov, _, chi2 = guarded(gls_normal_solve, *rj(vec), err, U, phi)
         return vec, chi2, cov
 
     def _gather_noise(self):

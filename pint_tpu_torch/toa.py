@@ -311,6 +311,9 @@ class TOAs:
     n_real = None
     n_filled = None
     pad_valid = None
+    #: the event file's row of each TOA, set by the photon loader
+    #: (:func:`pint_tpu_torch.event_toas.load_event_TOAs`); None otherwise
+    fits_rows = None
 
     def __init__(self, toa_list, ephem="builtin", planets=False,
                  include_clock=True, include_bipm=False,
@@ -520,6 +523,12 @@ class TOAs:
                 new.planet_pos[b] = np.concatenate(
                     [t.planet_pos[b] for t in toas_list])
         return new
+
+    def get_flag_values(self, flag, default=None, astype=str):
+        """Flag ``flag`` of every TOA as ``astype``, ``default`` where a
+        TOA lacks it (pint_tpu toa.py:478)."""
+        return [astype(f[flag]) if flag in f else default
+                for f in self.flags]
 
     # -- pulse numbers (pint_tpu toa.py:481-510) ------------------------------
     def get_pulse_numbers(self):

@@ -437,3 +437,173 @@ def pta_chi2_limit(cinv_r, sigma, valid=None):
         w, a = np.where(valid, w, 0.0), np.where(valid, a, 0.0)
     dr = PTA_RESID_DIFF_S
     return 2.0 * dr * np.sum(a, axis=-1) + dr * dr * np.sum(w, axis=-1)
+
+
+# --------------------------------------------------------------------------
+# the photon path (pint_tpu_torch/data/photon_fermi_1e5.npz: 10^5 weighted
+# photons of a 300 Hz DD pulsar; the tests' 2000-photon cases)
+# --------------------------------------------------------------------------
+
+#: a template's density (each primitive's, and the mixture's) against
+#: JAX's on the CPU, as :func:`vector_rel`.  The formulas are the same
+#: step for step; exp, cos, sinh, cosh, i0e and lgamma round by ATen's
+#: (SLEEF's vectorized) library on one side and XLA's on the other, and
+#: the Lorentzian's cosh - cos cancels by up to ~1/gamma^2 at narrow
+#: peaks, which multiplies an ulp of either.  Measured on the tests'
+#: primitives (500 phases in [-0.5, 1.5)) and 5-type mixture (1500
+#: photons): at most 9.5e-16 (LCKing's 19 wraps), 3.6e-16 the mixture.
+#: The limit is the reference's own 1e-12 pin for template densities,
+#: three orders above what the two libraries show.
+PHOTON_DENSITY_REL = 1e-12
+
+
+def photon_lnlike_limit(n, abs_sum, dphi=0.0, dlnx_abs_sum=0.0):
+    """lnL of ``n`` photons against another implementation of the same
+    formula: each photon's x = w f + 1 - w within PHOTON_DENSITY_REL
+    relative, so its log within that absolutely (n of them); the sum in
+    another order, (n + 1) eps sum_i |log x_i| (``abs_sum``); and phases
+    that differ by up to ``dphi`` turns move lnL by at most dphi sum_i
+    |d log x_i / d phi_i| (``dlnx_abs_sum``)."""
+    return PHOTON_DENSITY_REL * n + (n + 1) * _EPS * float(abs_sum) \
+        + float(dphi) * float(dlnx_abs_sum)
+
+
+def photon_grad_limit(abs_sum):
+    """lnL's gradient against JAX's autodiff on the CPU, per entry: the
+    sum over photons of g_i df_i/dtheta, each term within
+    PHOTON_DENSITY_REL of its own size (the derivative chains are the
+    same functions, associated otherwise), so PHOTON_DENSITY_REL times
+    the entry's sum of |terms| (``abs_sum``)."""
+    return PHOTON_DENSITY_REL * np.asarray(abs_sum)
+
+
+def k12_limit(n, abs_sum):
+    """Kernel K12 against its plain version on the card: the same CUDA
+    library functions and the same order of every per-photon operation
+    (the 7 wraps added in order, -fmad=false), so only the sum over the
+    ``n`` photons differs: (n + 1) eps sum_i |log x_i|, as
+    :func:`stream_moments_limit`."""
+    return stream_moments_limit(n, abs_sum)
+
+
+def k12b_limit(n, abs_sum):
+    """Kernel K12b against its plain versions on the card, per entry:
+    the order of the ``n``-photon sum, (n + 1) eps sum |terms|, and,
+    against autograd of the plain forward, each term's derivative
+    chain associated otherwise (~8 roundings, an eps each): (n + 16)
+    eps times the entry's sum of |terms| (``abs_sum``)."""
+    return (n + 16) * _EPS * np.asarray(abs_sum)
+
+
+#: the port's photon phases against JAX's on the card, in turns.  On the
+#: CPU the port's fold differs from JAX's by at most 4.5e-13 turns over
+#: the case's 10^5 photons (``phase_diff_turns`` in
+#: photon_fermi_1e5.npz): an ulp of a frac near +-0.5 renormalized
+#: either way.  On the card the DD binary's and the fold's
+#: transcendentals round by CUDA's library: an ulp of the ~3 s Roemer
+#: delay of the orbit is 4.4e-16 s, 1.3e-13 turns at 300 Hz, a few of
+#: which add.  1e-12 turns is twice the CPU's maximum; in
+#: ``chip_smoke.py``'s photon chains on an H100 the lnp differ from
+#: JAX's by at most 4.9e-9 (the template chain; the timing chain 8.4e-10),
+#: 1/260 of the limit it enters (1.26e-6).
+PHOTON_PHASE_TURNS = 1e-12
+
+
+def photon_mcmc_lnp_limit(n, lnx_abs_sum, dlnx_abs_sum):
+    """The photon chains' lnp against JAX's (as MCMC_LNP_ABS for the
+    timing posterior): :func:`photon_lnlike_limit` of the case's ``n``
+    photons with PHOTON_PHASE_TURNS of phase disagreement, at the sums
+    the case stores at the par's values (the chain stays within a few
+    sigma of them, where neither sum changes by a factor of two: the
+    limit takes twice each)."""
+    return photon_lnlike_limit(n, 2.0 * lnx_abs_sum, PHOTON_PHASE_TURNS,
+                               2.0 * dlnx_abs_sum)
+
+
+def photon_lnp_ok(got, ref, limit) -> bool:
+    """Every lnp within ``limit``; -inf exactly where the reference's
+    is; NaN only where it is NaN."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    same = np.isnan(got) == np.isnan(ref)
+    inf = np.isinf(got) | np.isinf(ref)
+    fin = ~np.isnan(ref) & ~inf
+    return bool(np.all(same) and np.all(got[inf] == ref[inf])
+                and np.all(np.abs(got[fin] - ref[fin]) <= limit))
+
+
+def photon_near_ties(margin, limit):
+    """Mask of the photon chains' near-tie decisions: |margin| below
+    twice the lnp ``limit`` (the two lnps a decision compares)."""
+    return np.abs(margin) < 2.0 * limit
+
+
+def photon_parting_step(margin, accepted, accepted_ref, limit) -> int:
+    """:func:`chain_parting_step` of a photon chain, its near ties by
+    :func:`photon_near_ties`."""
+    margin = np.asarray(margin)
+    differ = (np.asarray(accepted, bool) != np.asarray(accepted_ref, bool)) \
+        .reshape(margin.shape)
+    parted = (differ & photon_near_ties(margin, limit)).any(axis=(1, 2))
+    return int(np.argmax(parted)) if parted.any() else margin.shape[0]
+
+
+#: the perturbation of LCFitter's objective behind the template fit's
+#: limit: every evaluation's -lnL plus LCFIT_VALUE_REL sum_i |log x_i|
+#: xi_0 and its gradient's entry k plus LCFIT_GRAD_REL S_k xi_k (xi
+#: standard normal from a seed; the sums at JAX's fitted parameters,
+#: S_k = sum_i |d log x_i / d theta_k|).  The port's lnL and gradient
+#: differ from JAX's by at most 9.9e-16 sum|log x| and 4.1e-14 S_k on
+#: the CPU (the tests' 3000 photons, both of their templates, 8 points
+#: along each fit; the gradient's largest is kappa's, through i0e), and
+#: by at most 3.9e-16 sum|log x| and 1.1e-14 S_k on an H100 (the case's
+#: 10^5 photons at 4 points, ``chip_smoke.py``'s ``lc fit``, which
+#: checks both again): these round the larger up.
+LCFIT_VALUE_REL = 2e-15
+LCFIT_GRAD_REL = 1e-13
+#: the fit limit's margin over JAX's typical movement under that
+#: perturbation
+LCFIT_MARGIN = 10.0
+
+
+def lcfit_limits(fits, fits_lnlike, params, lnlike, sigma):
+    """{'params' (per parameter, absolute), 'lnlike', 'fraction'}:
+    LCFitter's fit against JAX's.  L-BFGS-B stops where its
+    relative-reduction test says, not at the maximum, so its answer
+    moves with the rounding of its path.  JAX's own fit under the
+    perturbation of LCFIT_VALUE_REL / LCFIT_GRAD_REL (the port's
+    measured disagreement, rounded up), one fit a seed, lands at
+    ``fits`` (S, P) with lnL ``fits_lnlike``, against its unperturbed
+    ``params`` and ``lnlike``.  The fraction of each parameter's sigma
+    (the Hessian's; where it leaves none, the parameter's own size) is
+    LCFIT_MARGIN times the median over the seeds of the largest such
+    movement, and the lnL's limit LCFIT_MARGIN times the median
+    movement of lnL.  The median: on an objective with steps (the
+    two-sided primitives' density jumps at the peak, so lnL steps as
+    loc crosses a photon) some seeds carry the fit elsewhere, and
+    :func:`lcfit_nearest` holds the port to the nearest of JAX's
+    fits."""
+    params = np.asarray(params, np.float64)
+    sigma = np.asarray(sigma, np.float64)
+    scale = np.where(np.isfinite(sigma) & (sigma > 0), sigma,
+                     np.abs(params))
+    fits = np.atleast_2d(np.asarray(fits, np.float64))
+    moves = np.max(np.abs(fits - params) / scale, axis=1)
+    frac = LCFIT_MARGIN * float(np.median(moves))
+    dl = np.abs(np.asarray(fits_lnlike, np.float64) - float(lnlike))
+    return {"params": frac * scale + 8.0 * _EPS * np.abs(params),
+            "lnlike": LCFIT_MARGIN * float(np.median(dl))
+            + 8.0 * _EPS * abs(float(lnlike)),
+            "fraction": frac, "moves": moves}
+
+
+def lcfit_nearest(got, got_lnlike, fits, fits_lnlike, limits):
+    """The port's fit (``got``, ``got_lnlike``) against the nearest of
+    JAX's fits (``fits`` (S, P) and ``fits_lnlike`` (S,): its own and
+    its perturbed ones): the smallest over them of the largest ratio of
+    a parameter's or lnL's difference to its limit in ``limits``
+    (:func:`lcfit_limits`); at most 1 passes."""
+    fits = np.atleast_2d(np.asarray(fits, np.float64))
+    d = np.abs(np.asarray(got, np.float64) - fits) / limits["params"]
+    dl = np.abs(float(got_lnlike) - np.asarray(fits_lnlike, np.float64)) \
+        / limits["lnlike"]
+    return float(np.min(np.maximum(np.max(d, axis=1), dl)))

@@ -1,4 +1,4 @@
-"""Kernels K1-K11 and K11b on the card against their plain PyTorch
+"""Kernels K1-K12 (with K11b and K12b) on the card against their plain PyTorch
 versions, and the double-double arithmetic on CUDA tensors against the
 same calls on CPU tensors.
 
@@ -1141,3 +1141,98 @@ def test_k7_pulsar_axis_one_launch(card, k):
     for x, q in zip(a[1:], pl[1:]):
         assert tol.vector_rel(x.cpu().numpy(), q.numpy()) \
             <= tol.WLS_WHITEN_REL
+
+
+def _k12_case(card, w_rows, n, shared, seed=12):
+    """K12's inputs on the card: (W, N) phases in [-0.5, 0.5), weights,
+    and the packed rows of a 5-type template (every type K12 covers),
+    one row per walker or one shared row."""
+    from pint_tpu_torch import templates as tt
+
+    t = tt.LCTemplate([tt.LCGaussian(0.03, 0.2), tt.LCLorentzian(0.03, 0.4),
+                       tt.LCVonMises(40.0, 0.6),
+                       tt.LCGaussian2(0.02, 0.04, 0.75),
+                       tt.LCLorentzian2(0.02, 0.05, 0.9)],
+                      norms=[0.15, 0.1, 0.1, 0.1, 0.1])
+    rng = np.random.default_rng(seed)
+    frac = torch.tensor(rng.uniform(-0.5, 0.5, (w_rows, n)), device=card)
+    wts = torch.tensor(rng.beta(1.0, 2.0, n), device=card)
+    rows_n = 1 if shared else w_rows
+    p = torch.tensor(t.params)[None] * torch.tensor(
+        1.0 + 0.02 * rng.standard_normal((rows_n, len(t.params))))
+    types, rows, bg = tt.pack_template(t, p.to(card))
+    return frac, wts, types, rows, bg
+
+
+@pytest.mark.parametrize("w_rows,n,shared", [(16, 100_000, False),
+                                             (1, 100_000, False),
+                                             (16, 5_000, True),
+                                             (3, 2049, False)])
+def test_k12_against_plain_and_deterministic(card, w_rows, n, shared):
+    from pint_tpu_torch import templates as tt
+    from pint_tpu_torch import tolerances as tol
+
+    for weighted in (True, False):
+        frac, wts, types, rows, bg = _k12_case(card, w_rows, n, shared)
+        wts = wts if weighted else None
+        args = (frac, wts, types, rows, bg)
+        got, again = tt.photon_lnlike_cuda(*args), tt.photon_lnlike_cuda(*args)
+        plain = tt.photon_lnlike_plain(*args)
+        lim = tol.k12_limit(n, tt.photon_lnlike_plain(
+            *args, absolute=True).cpu().numpy())
+        assert torch.equal(got.view(torch.int64), again.view(torch.int64))
+        assert np.all(torch.abs(got - plain).cpu().numpy() <= lim)
+        dens = tt.photon_lnlike_cuda(*args, density=True)
+        assert torch.equal(dens.view(torch.int64), tt.photon_density_plain(
+            frac, types, rows, bg).view(torch.int64))
+        gb = tt.photon_lnlike_bwd_cuda(*args)
+        assert torch.equal(gb.view(torch.int64),
+                           tt.photon_lnlike_bwd_cuda(*args).view(torch.int64))
+        blim = tol.k12b_limit(n, tt.photon_lnlike_bwd_plain(
+            *args, absolute=True).cpu().numpy())
+        assert np.all(torch.abs(gb - tt.photon_lnlike_bwd_plain(*args))
+                      .cpu().numpy() <= blim)
+
+
+def test_k12_binned_and_vmap_one_launch(card):
+    """The binned profile through K12, and torch.func.vmap over walkers
+    as one launch set."""
+    from pint_tpu_torch import templates as tt
+
+    frac, wts, types, rows, bg = _k12_case(card, 8, 3000, False)
+    bins = torch.linspace(0.5, 1.5, 64, dtype=torch.float64, device=card)
+    e = (torch.zeros(0, dtype=torch.int32, device=card),
+         torch.zeros((1, 0, 8), dtype=torch.float64, device=card),
+         torch.zeros(1, dtype=torch.float64, device=card))
+    got = tt.photon_lnlike_cuda(frac, wts, *e, bins=bins, wrap=True)
+    want = tt.photon_lnlike_plain(frac, wts, *e, bins=bins, wrap=True)
+    assert torch.allclose(got, want, rtol=0, atol=1e-10)
+    before = tt.K12.launches
+    out = torch.func.vmap(lambda f, r, b: tt.photon_lnlike(
+        f[None], wts, types, r[None], b.reshape(1), wrap=True)[0])(
+            frac, rows, bg)
+    assert tt.K12.launches - before == 1
+    assert torch.equal(out, tt.photon_lnlike_cuda(frac, wts, types, rows,
+                                                  bg, wrap=True))
+
+
+def test_k12_lcfitter_gradient_is_k12b(card):
+    """LCFitter's gradient on the card goes through K12b; the Hessian
+    raises there."""
+    from pint_tpu_torch import templates as tt
+
+    t = tt.LCTemplate([tt.LCGaussian(0.04, 0.3), tt.LCVonMises(30.0, 0.8)],
+                      norms=[0.3, 0.2])
+    rng = np.random.default_rng(3)
+    f = tt.LCFitter(t, rng.uniform(0, 1, 4000), rng.beta(1, 2, 4000),
+                    device=card)
+    before = (tt.K12.launches, tt.K12B.launches)
+    v, g = f._val_grad(t.params)
+    assert (tt.K12.launches - before[0], tt.K12B.launches - before[1]) \
+        == (1, 1)
+    fc = tt.LCFitter(t, f.phases, f.weights, device="cpu")
+    vc, gc = fc._val_grad(t.params)
+    assert abs(float(v) - float(vc)) <= 1e-9 * abs(float(vc))
+    assert torch.allclose(g.cpu(), gc, rtol=1e-9, atol=1e-9)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        f.param_uncertainties()

@@ -126,6 +126,37 @@ def test_k9_wrapper_never_falls_back():
     assert ts.K9.launches == 0
 
 
+def test_photon_modules_are_scanned():
+    assert {"pint_tpu_torch.fits", "pint_tpu_torch.event_toas",
+            "pint_tpu_torch.eventstats", "pint_tpu_torch.templates",
+            "pint_tpu_torch.mcmc_fitter"} <= set(_modules())
+
+
+def test_k12_wrapper_never_falls_back():
+    """K12's and K12b's wrappers raise on CPU tensors, and the
+    dispatchers on a device with no version; the plain versions run only
+    for CPU tensors."""
+    from pint_tpu_torch import templates as tt
+
+    f64 = dict(dtype=torch.float64)
+    t = tt.LCTemplate([tt.LCGaussian()])
+    types, rows, bg = tt.pack_template(t, torch.tensor(t.params))
+    args = (torch.zeros((1, 8), **f64), None, types, rows[None],
+            bg.reshape(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.photon_lnlike_cuda(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.photon_lnlike_cuda(*args, density=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.photon_lnlike_bwd_cuda(*args)
+    meta = tuple(None if a is None else a.to("meta") for a in args)
+    with pytest.raises(ValueError, match="no version"):
+        tt.photon_lnlike(*meta)
+    with pytest.raises(ValueError, match="no version"):
+        tt.photon_density(meta[0], *meta[2:])
+    assert tt.K12.launches == 0 and tt.K12B.launches == 0
+
+
 def test_ingest_modules_are_scanned():
     assert {"pint_tpu_torch.time", "pint_tpu_torch.time.mjd",
             "pint_tpu_torch.time.scales", "pint_tpu_torch.ephem",

@@ -6,7 +6,11 @@ sampled names that change sigma or are not PLRedNoise's (item 8),
 the reverse-mode rule of ``segment_sum`` (item 11), and of the PTA batch
 ``fit_wideband`` (item 10), ``mesh=``, ``chisq_grid`` and members of
 different mask families (item 13), ``checkpoint=`` and the checkpoints
-(item 2) and the GW statistics from a batch (item 8)."""
+(item 2) and the GW statistics from a batch (item 8); on the photon
+side an event file's ``orbfile=`` (item 1), a primitive kernel K12 does
+not cover on the card, the energy-dependent templates and the template
+fit's Hessian on the card (item 14), and ``MCMCFitter.fit_toas(
+checkpoint=)`` (item 2)."""
 
 import functools
 
@@ -105,8 +109,55 @@ def _mask_families():
     PTABatch(pairs, device="cpu")
 
 
+def _orbfile():
+    from pint_tpu_torch.event_toas import load_event_TOAs
+
+    load_event_TOAs("events.fits", "nicer", orbfile="orbit.fits")
+
+
+def _k12_top_hat():
+    from pint_tpu_torch import templates as tt
+
+    t = tt.LCTemplate([tt.LCGaussian(), tt.LCTopHat()])
+    tt.pack_template(t, torch.tensor(t.params))
+
+
+def _energy(name):
+    from pint_tpu_torch import templates as tt
+
+    getattr(tt, name)()
+
+
+def _lcfit_hessian_on_card():
+    from pint_tpu_torch import templates as tt
+
+    f = tt.LCFitter(tt.LCTemplate([tt.LCGaussian()]), [0.1, 0.5],
+                    device="cpu")
+    f.device = torch.device("cuda")
+    f.param_uncertainties()
+
+
+def _mcmc_checkpoint():
+    from pint_tpu_torch.mcmc_fitter import MCMCFitter
+    from pint_tpu_torch.templates import LCGaussian, LCTemplate
+
+    m = get_model(PAR)
+    toas = _pair_toas(m)
+    MCMCFitter(toas, m, LCTemplate([LCGaussian()]), device="cpu",
+               priors={n: None for n in m.free_params}).fit_toas(
+        checkpoint="chain.npz")
+
+
 #: {case: (call, the queue item its message names)}
 CASES = {
+    "event orbfile": (_orbfile, 1),
+    "K12 primitive not covered": (_k12_top_hat, 14),
+    "LCEGaussian": (functools.partial(_energy, "LCEGaussian"), 14),
+    "LCETemplate": (functools.partial(_energy, "LCETemplate"), 14),
+    "LCEFitter": (functools.partial(_energy, "LCEFitter"), 14),
+    "ENormAngles": (functools.partial(_energy, "ENormAngles"), 14),
+    "LCFitter Hessian on the card": (_lcfit_hessian_on_card, 14),
+    "MCMCFitter checkpoint": (_mcmc_checkpoint, 2),
     "overlapping ECORR epochs": (_overlapping_ecorr, 3),
     "two ECORR components": (_two_ecorr_components, 3),
     "sampled name changes sigma": (functools.partial(_sampled, "EFAC1"), 8),

@@ -10,9 +10,10 @@ pulsars, beside the plain backward), ``k9_k6_times`` (a K9 step, a
 K6 draw) or ``k11_k7_times`` (K11 at the dense grid's chunk of 9
 points and at 4 points of a full-width array, and at P = 12, G = 512;
 K7 at the WLS fit's 10^4 x 11 and the WLS grid's 256 x 10^4 x 8; each
-with an exact checksum of its outputs' bits), or ``fit_checksums`` (the
+with an exact checksum of its outputs' bits), ``fit_checksums`` (the
 exact checksums of the 10k GLS fit's prefit residuals, fitted values and
-postfit residuals).
+postfit residuals) or ``fit_walls`` (the 10k case's warm GLS and WLS
+``fit_toas(maxiter=3)`` walls).
 
 Usage (on a machine with an NVIDIA GPU, from the repo root)::
 
